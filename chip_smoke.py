@@ -5,13 +5,24 @@
 
 Builds the port's CUDA kernel from csrc/, holds it against the plain
 PyTorch version and the C++ host oracle, times both, and drives the
-port's main path -- the find_hit all-vs-all search -- on the card at the
-size of the 10-genome configuration (41,168 sequences), checking the
-m8 table byte for byte against the JAX package's digest.  Imports no JAX.
+port's paths on the card, each checked against the JAX package's
+digests (pinned below, computed with the JAX package on the CPU):
 
-Each phase prints one JSON line: device, build, kernel_parity,
-kernel_time, search_parity, search.  Any failed check exits nonzero
-before the result lines.  The last three lines are the card's
+- the find_hit all-vs-all search at the size of the 10-genome
+  configuration (41,168 sequences): the m8 table byte for byte;
+- find_orth on that table, and find_cluster on the orthology graph it
+  writes (mcl on cuda and cpu, textbook apc and sap on cuda, twice each,
+  and the host's faithful apc): output md5s;
+- clustering at scale: a >=1.0M-edge planted-family graph through
+  mcl_cluster, and a 20,480-node component through the block-sparse
+  engine, twice, against the scipy oracle;
+- run_all -A mcl on the 1,034-sequence corpus, in a child process that
+  runs beside the search and clustering phases: .sc .opc .clsr .pan md5s.
+
+Imports no JAX.  Each phase prints one JSON line: device, build,
+kernel_parity, kernel_time, search_parity, search, orth, cluster_parity,
+cluster_scale, pipeline.  Any failed check exits nonzero before the
+result lines.  The last three lines are the card's
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line,
 the kernels JSON object and {"ok": true, "device": {...}}.
 """
@@ -39,6 +50,28 @@ BIG_SC_MD5 = 'a981540b1f2f3d648950f053de352f92'
 SMALL = dict(n_taxa=5, n_families=200, seed=7)
 SMALL_FSA_MD5 = 'a427a30efdd8e463cf4d44af2510ff7f'
 SMALL_SC_MD5 = '25358fa86cbd285a852832f33e51f09c'
+# the JAX package's find_orth (defaults) on the 41k table, and its
+# find_cluster (defaults) on the graph that writes
+BIG_OPC_MD5 = '325563182e8728eef0689529561ec99a'
+BIG_CLSR_MD5 = {'mcl': 'e47d40247535bcad66cd4447e4e26efc',
+                'apc_textbook': '6ef671195edc9e21fb3923fc001625a5',
+                'sap': 'ddede1a9d5d7c8d81523b872579d7981',
+                'apc_faithful': '8dd8a02e583249e1b56d992e39e7cf9e'}
+# the JAX package's run_all -A mcl on SMALL (no external tools on PATH;
+# scipy 1.17.0, numpy 2.0.2).  The .pan's three curve-fit lines (the
+# ones holding '±') carry scipy.optimize.curve_fit results, which move
+# with the scipy build; PAN_NOFIT_MD5 is the digest without them, and
+# the whole .pan is also held against the JAX package's own stage-4 code
+# (swiftortho_tpu.analysis.pan_genome.pan_report) run here.
+PIPE_MD5 = {'sc': 'b0c46bb9013002fcb19c72c5eb4b101d',
+            'opc': 'd287115f4a9767e736a6ad7118eeea6d',
+            'clsr': 'ed3a8913b92608542fdca4baf705d4c9'}
+PAN_MD5 = '9961b88eba3aa29364d9491ac250c9b8'
+PAN_NOFIT_MD5 = '95ae2bf7d43a0a656f2ef1c295749f49'
+PIPE_NWK_MD5_NO_TOOLS = 'dededa9ff50bd04ac09bfada7d194d5f'
+SCALE_FAMILIES, SCALE_CHAIN, CLIQUE = 5200, 225, 20
+SCALE_MIN_EDGES = 1_000_000
+BIG_COMPONENT_CLIQUES, BIG_COMPONENT_MB = 1024, 1024    # 20,480 nodes
 PARITY_LENGTHS = (128, 500, 1536, 4096)
 TIME_B, TIME_L, BAND = 4096, 500, 32        # the bench.py shape
 
@@ -225,28 +258,48 @@ def phase_kernel_time(np, torch):
     return res
 
 
-def run_find_hit(fsa, out, platform):
-    """The port's find_hit CLI in this process; returns (seconds, the
-    structured log events it wrote to stderr)."""
-    from swiftortho_tpu_torch.cli.find_hit import main
-    old = os.environ.get('SWIFTORTHO_PLATFORM')
-    os.environ['SWIFTORTHO_PLATFORM'] = platform
-    buf = io.StringIO()
+@contextlib.contextmanager
+def env_set(**env):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
-        t0 = time.time()
-        with contextlib.redirect_stderr(buf):
-            rc = main(['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
-                       '-o', out])
-        seconds = time.time() - t0
+        yield
     finally:
-        if old is None:
-            os.environ.pop('SWIFTORTHO_PLATFORM', None)
-        else:
-            os.environ['SWIFTORTHO_PLATFORM'] = old
-    check(rc == 0, 'find_hit exited %s' % rc)
-    events = [json.loads(ln.split(' ', 1)[1]) for ln in
-              buf.getvalue().splitlines() if ln.startswith('[swiftortho] {')]
-    return seconds, events
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_cli(main, argv, platform, stdout_path=None, **env):
+    """One of the port's CLIs in this process; returns (seconds, the
+    structured log events it wrote to stderr).  With ``stdout_path`` its
+    standard output goes to that file."""
+    buf = io.StringIO()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(env_set(SWIFTORTHO_PLATFORM=platform, **env))
+        stack.enter_context(contextlib.redirect_stderr(buf))
+        if stdout_path is not None:
+            out = stack.enter_context(open(stdout_path, 'w'))
+            stack.enter_context(contextlib.redirect_stdout(out))
+        t0 = time.time()
+        rc = main(argv)
+        seconds = time.time() - t0
+    check(rc == 0, '%s exited %s' % (argv[0], rc))
+    return seconds, events_of(buf.getvalue())
+
+
+def events_of(stderr_text):
+    return [json.loads(ln.split(' ', 1)[1]) for ln in
+            stderr_text.splitlines() if ln.startswith('[swiftortho] {')]
+
+
+def run_find_hit(fsa, out, platform):
+    from swiftortho_tpu_torch.cli.find_hit import main
+    return run_cli(main, ['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
+                          '-o', out], platform)
 
 
 def write_corpus_checked(tmp, name, spec, want_md5):
@@ -313,6 +366,324 @@ def phase_search(tmp, torch):
     return launches
 
 
+def profiled(torch, fn):
+    """Run fn() under torch.profiler; returns (its result, the device
+    time by kernel).  Kernel time counts only CUDA kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total_us = sum(us for _, us in rows)
+    if not total_us:
+        return out, {'kernel_time': 'not measured (no CUDA events)'}
+    rows.sort(key=lambda r: -r[1])
+    return out, {'wall_s': round(wall, 4),
+                 'kernel_s': round(total_us / 1e6, 4),
+                 'busy_share': round(total_us / 1e6 / wall, 4),
+                 'top': [{'kernel': k[:90], 'ms': round(us / 1e3, 3),
+                          'share': round(us / total_us, 4)}
+                         for k, us in rows[:8]]}
+
+
+def phase_orth(tmp):
+    from swiftortho_tpu_torch.cli.find_orth import main
+    sc = os.path.join(tmp, 'big.sc')
+    opc = os.path.join(tmp, 'big.opc')
+    secs, _ = run_cli(main, ['find_orth', '-i', sc], 'cuda', opc)
+    got = md5(opc)
+    check(got == BIG_OPC_MD5, '.opc md5 %s != the JAX package\'s %s'
+          % (got, BIG_OPC_MD5))
+    with open(opc, 'rb') as f:
+        rows = sum(1 for _ in f)
+    emit('orth', rows=rows, opc_md5=got, seconds=round(secs, 3))
+    return opc
+
+
+def phase_cluster_parity(tmp, opc, torch):
+    """find_cluster on the 41k orthology graph: every md5 equal to the
+    JAX package's; the device modes run twice (the second under the
+    profiler) and must write the same bytes."""
+    from swiftortho_tpu.native import load as load_native
+    from swiftortho_tpu_torch.cli.find_cluster import main
+    cases = [('mcl', 'cuda', 'mcl', {}), ('mcl', 'cpu', 'mcl', {}),
+             ('apc_textbook', 'cuda', 'apc', {'SWIFTORTHO_APC_FAITHFUL': '0'}),
+             ('sap', 'cuda', 'sap', {}),
+             ('apc_faithful', 'cuda', 'apc', {})]
+    t_phase = time.time()
+    rows = []
+    for name, plat, algo, env in cases:
+        argv = ['find_cluster', '-i', opc, '-a', algo]
+        out = os.path.join(tmp, 'big.%s.%s.clsr' % (name, plat))
+        secs, events = run_cli(main, argv, plat, out, **env)
+        got = md5(out)
+        check(got == BIG_CLSR_MD5[name],
+              '%s on %s: .clsr md5 %s != the JAX package\'s %s'
+              % (name, plat, got, BIG_CLSR_MD5[name]))
+        with open(out, 'rb') as f:
+            groups = sum(1 for _ in f)
+        row = {'case': name, 'platform': plat, 'groups': groups,
+               'md5': got, 'seconds': round(secs, 3)}
+        dense = [e for e in events if e['stage'] == 'mcl_dense_batch']
+        if dense:
+            row['dense_batches'] = len(dense)
+            row['dense_device_s'] = round(sum(e['device_s'] for e in dense), 4)
+            row['dense_host_s'] = round(sum(e['build_s'] + e['extract_s']
+                                            for e in dense), 4)
+            row['max_iterations'] = max(e['iterations'] for e in dense)
+        if name == 'apc_faithful':
+            load_native()
+            check(not [e for e in events if e['stage'] == 'fallback'],
+                  'faithful apc ran the pure-Python fallback')
+            row['native'] = True
+        elif plat == 'cuda':
+            again = out + '.again'
+            _, prof = profiled(torch, lambda: run_cli(main, argv, plat,
+                                                      again, **env))
+            with open(out, 'rb') as f, open(again, 'rb') as g:
+                check(f.read() == g.read(),
+                      '%s: two cuda runs wrote different bytes' % name)
+            row['repeat_identical'] = True
+            row['profile'] = prof
+        rows.append(row)
+    emit('cluster_parity', cases=rows, seconds=round(time.time() - t_phase, 3))
+
+
+def clique_chain(np, rng, n_cliques, base=0, bridge_w=0.05):
+    """n_cliques cliques of CLIQUE nodes in a chain joined by weak
+    bridges: ONE component whose MCL partition is the cliques."""
+    a, b = np.triu_indices(CLIQUE, 1)
+    off = base + CLIQUE * np.arange(n_cliques)[:, None]
+    ei = (off + a).ravel()
+    ej = (off + b).ravel()
+    w = 1.0 + 0.1 * rng.random(len(ei))
+    bi = base + CLIQUE * np.arange(1, n_cliques)
+    return (np.concatenate([ei, bi - 1]), np.concatenate([ej, bi]),
+            np.concatenate([w, np.full(len(bi), bridge_w)]))
+
+
+def partition(np, m, ri, rj):
+    from swiftortho_tpu_torch.cluster.components import connected_components
+    labels = connected_components(m, ri, rj)
+    present = np.zeros(m, bool)
+    present[ri] = True
+    present[rj] = True
+    return sorted(tuple(np.flatnonzero((labels == lab) & present).tolist())
+                  for lab in np.unique(labels[present]))
+
+
+def phase_cluster_scale(np, torch):
+    import scipy.sparse as sp
+    from swiftortho_tpu_torch.cluster import mcl as port_mcl
+    from swiftortho_tpu_torch.cluster.mcl_blocksparse import mcl_blocksparse
+    cuda = torch.device('cuda')
+    t_phase = time.time()
+    rng = np.random.default_rng(42)
+
+    # >= 1.0M edges: planted family cliques (dense batches) + one chain
+    # of cliques over max_dense nodes (block-sparse)
+    t0 = time.time()
+    a, b = np.triu_indices(CLIQUE, 1)
+    off = CLIQUE * np.arange(SCALE_FAMILIES)[:, None]
+    fi, fj = (off + a).ravel(), (off + b).ravel()
+    fw = 1.0 + 0.1 * rng.random(len(fi))
+    base = SCALE_FAMILIES * CLIQUE
+    ci, cj, cw = clique_chain(np, rng, SCALE_CHAIN, base=base)
+    ei, ej, w = (np.concatenate(x) for x in ((fi, ci), (fj, cj), (fw, cw)))
+    n = base + SCALE_CHAIN * CLIQUE
+    check(len(ei) >= SCALE_MIN_EDGES, 'scale graph has %d edges' % len(ei))
+    build_s = time.time() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(buf):
+        clusters = port_mcl.mcl_cluster(n, ei, ej, w, device=cuda)
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    events = events_of(buf.getvalue())
+    check(len(clusters) == SCALE_FAMILIES + SCALE_CHAIN
+          and all(len(c) == CLIQUE and c[0] % CLIQUE == 0
+                  and c[-1] == c[0] + CLIQUE - 1 for c in clusters),
+          'million-edge partition != the planted families')
+    dense = [e for e in events if e['stage'] == 'mcl_dense_batch']
+    bs = [e for e in events if e['stage'] == 'mcl_blocksparse']
+    dense_it = sum(e['iterations'] for e in dense)
+    dense_dev = sum(e['device_s'] for e in dense)
+    million = {
+        'nodes': n, 'edges': len(ei), 'clusters': len(clusters),
+        'graph_build_s': round(build_s, 3), 'seconds': round(secs, 3),
+        'dense_batches': [{k: e[k] for k in ('s', 'batch', 'iterations',
+                                              'build_s', 'device_s',
+                                              'extract_s')} for e in dense],
+        'dense_ms_per_iteration': round(1e3 * dense_dev / dense_it, 3),
+        'blocksparse': [{k: e[k] for k in ('m', 'iterations', 'seconds',
+                                            'max_tiles', 'max_pairs')}
+                        for e in bs],
+        'peak_device_bytes': peak}
+
+    # one 20,480-node component through the block-sparse engine, twice,
+    # against the scipy oracle
+    m = BIG_COMPONENT_CLIQUES * CLIQUE
+    li, lj, lw = clique_chain(np, rng, BIG_COMPONENT_CLIQUES)
+    lw = lw.astype(np.float32)
+    selfw = np.zeros(m, np.float32)
+    np.maximum.at(selfw, li, lw)
+    np.maximum.at(selfw, lj, lw)
+    runs = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.time()
+
+        def engine():
+            with contextlib.redirect_stderr(buf):
+                return mcl_blocksparse(m, li, lj, lw, selfw, 1.5,
+                                       mb=BIG_COMPONENT_MB, device=cuda)
+        if rep == 0:
+            got, prof = engine(), None
+        else:
+            got, prof = profiled(torch, engine)
+        ev = events_of(buf.getvalue())[-1]
+        runs.append({'got': got, 'seconds': time.time() - t0, 'event': ev,
+                     'peak': torch.cuda.max_memory_allocated(),
+                     'profile': prof})
+    check(all(np.array_equal(p, q) for p, q in zip(runs[0]['got'],
+                                                   runs[1]['got'])),
+          'two block-sparse runs left different entries')
+    t0 = time.time()
+    mat = sp.lil_matrix((m, m), dtype=np.float32)
+    mat[li, lj] = lw
+    mat[lj, li] = lw
+    mat.setdiag(selfw)
+    xr = port_mcl._mcl_sparse(mat, 1.5)
+    oracle_s = time.time() - t0
+    want = partition(np, m, *(xr > 1e-5).nonzero())
+    got = partition(np, m, *runs[0]['got'])
+    check(got == want, 'block-sparse partition != the scipy oracle\'s')
+    check(len(got) == BIG_COMPONENT_CLIQUES,
+          'block-sparse found %d clusters, planted %d'
+          % (len(got), BIG_COMPONENT_CLIQUES))
+    ev = runs[0]['event']
+    component = {
+        'nodes': m, 'edges': len(li), 'mb': BIG_COMPONENT_MB,
+        'clusters': len(got), 'iterations': ev['iterations'],
+        'max_tiles': ev['max_tiles'], 'max_pairs': ev['max_pairs'],
+        'seconds': [round(r['seconds'], 3) for r in runs],
+        'ms_per_iteration': round(1e3 * runs[0]['seconds']
+                                  / ev['iterations'], 3),
+        'iterations_per_s': round(ev['iterations'] / runs[0]['seconds'], 3),
+        'peak_device_bytes': [r['peak'] for r in runs],
+        'repeat_identical': True, 'scipy_oracle_s': round(oracle_s, 3),
+        'profile': runs[1]['profile']}
+    emit('cluster_scale', million_edge=million, oversize_component=component,
+         seconds=round(time.time() - t_phase, 3))
+
+
+PIPELINE_CHILD = r"""
+import json, os, sys, time
+sys.modules['jax'] = None
+os.environ['SWIFTORTHO_PLATFORM'] = 'cuda'
+from swiftortho_tpu_torch.cli.run_all import main
+from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+cu.reset_counters()
+t0 = time.time()
+rc = main(['run_all', '-i', sys.argv[1], '-A', 'mcl'])
+print(json.dumps({'rc': rc, 'seconds': time.time() - t0,
+                  'launches': cu.launches, 'pairs': cu.pairs}))
+"""
+
+
+def start_pipeline(tmp):
+    """run_all -A mcl on SMALL in a child process (its stage 5 is host
+    Python that would otherwise hold the script for minutes)."""
+    pdir = os.path.join(tmp, 'pipeline')
+    os.makedirs(pdir)
+    fsa, n = write_corpus_checked(pdir, 'small.fsa', SMALL, SMALL_FSA_MD5)
+    out = open(os.path.join(pdir, 'stdout.txt'), 'w')
+    err = open(os.path.join(pdir, 'stderr.txt'), 'w')
+    proc = subprocess.Popen(
+        [sys.executable, '-c', PIPELINE_CHILD, fsa], stdout=out,
+        stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {'proc': proc, 'fsa': fsa, 'n': n, 'files': (out, err),
+            't0': time.time()}
+
+
+def check_pan(pan_path, clsr_path, fsa):
+    """The .pan against the JAX package's stage-4 code on the same
+    .clsr here, and against the pinned digest outside the curve-fit
+    lines; returns what was compared."""
+    import scipy
+    from swiftortho_tpu.analysis.pan_genome import pan_report
+    from swiftortho_tpu.io_fasta import SeqDB
+    ref = io.StringIO()
+    with open(clsr_path) as fh:
+        pan_report(SeqDB.from_path(fsa), fh, ref, ts=0.05, tc=0.95)
+    with open(pan_path, encoding='utf-8') as f:
+        pan = f.read()
+    check(pan == ref.getvalue(),
+          '.pan != pan_report of the JAX package on the same .clsr')
+    nofit = ''.join(ln for ln in pan.splitlines(True) if '±' not in ln)
+    got = hashlib.md5(nofit.encode()).hexdigest()
+    check(got == PAN_NOFIT_MD5, '.pan outside its curve-fit lines: md5 %s '
+          '!= the JAX package\'s %s' % (got, PAN_NOFIT_MD5))
+    return {'md5': md5(pan_path), 'md5_jax_scipy_1_17': PAN_MD5,
+            'nofit_md5': got, 'equals_pan_report_here': True,
+            'fit_lines': len(pan.splitlines()) - len(nofit.splitlines()),
+            'scipy': scipy.__version__}
+
+
+def phase_pipeline(pipe):
+    from swiftortho_tpu.analysis.exttools import find_tool
+    proc = pipe['proc']
+    t_wait = time.time()
+    proc.wait(timeout=900)
+    waited = time.time() - t_wait
+    for f in pipe['files']:
+        f.flush()
+    stdout_path, stderr_path = (f.name for f in pipe['files'])
+    with open(stdout_path) as f:
+        lines = f.read().splitlines()
+    with open(stderr_path) as f:
+        err = f.read()
+    check(proc.returncode == 0 and lines,
+          'run_all child exited %s: %s' % (proc.returncode, err[-2000:]))
+    res = json.loads(lines[-1])
+    check(res['rc'] == 0, 'run_all returned %s' % res['rc'])
+    check(res['launches']['full'] > 0 and res['launches']['score_only'] > 0,
+          'run_all did not launch both kernel variants: %s'
+          % res['launches'])
+    base = pipe['fsa'] + '_results/small.fsa.'
+    md5s = {ext: md5(base + ext) for ext in PIPE_MD5}
+    bad = {ext: got for ext, got in md5s.items() if got != PIPE_MD5[ext]}
+    check(not bad, 'run_all outputs differ from the JAX package\'s: %s'
+          % bad)
+    pan = check_pan(base + 'pan', base + 'clsr', pipe['fsa'])
+    stages = {ln.rsplit(':', 1)[0]: float(ln.rsplit(':', 1)[1])
+              for ln in lines[:-1] if ln.endswith(tuple('0123456789'))
+              and ' time:' in ln}
+    nwk = base + 'nwk'
+    tools = {t: find_tool(t) is not None
+             for t in ('famsa', 'mafft', 'muscle', 'trimal', 'fasttree',
+                       'FastTree')}
+    emit('pipeline', sequences=pipe['n'], md5=md5s, pan=pan,
+         nwk_md5=md5(nwk) if os.path.exists(nwk) else None,
+         nwk_md5_jax_without_tools=PIPE_NWK_MD5_NO_TOOLS,
+         tools_on_path=tools, launches=res['launches'], pairs=res['pairs'],
+         run_all_s=round(res['seconds'], 3), stage_s=stages,
+         seconds=round(time.time() - pipe['t0'], 3),
+         waited_s=round(waited, 3),
+         ran_beside='search_parity, search, orth, cluster_parity, '
+                    'cluster_scale')
+
+
 def main():
     import numpy as np
     import torch
@@ -322,8 +693,20 @@ def main():
     max_err = phase_kernel_parity(np, torch)
     times = phase_kernel_time(np, torch)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
-        phase_search_parity(tmp)
-        launches = phase_search(tmp, torch)
+        pipe = start_pipeline(tmp)
+        try:
+            phase_search_parity(tmp)
+            launches = phase_search(tmp, torch)
+            opc = phase_orth(tmp)
+            phase_cluster_parity(tmp, opc, torch)
+            phase_cluster_scale(np, torch)
+            phase_pipeline(pipe)
+        finally:
+            if pipe['proc'].poll() is None:
+                pipe['proc'].kill()
+                pipe['proc'].wait()
+            for f in pipe['files']:
+                f.close()
     check(not [m for m in sys.modules if m.split('.')[0] == 'jax'
                and sys.modules[m] is not None], 'jax was imported')
     kernels = [{'name': 'banded_sw_' + var, 'route': 'cuda',

@@ -1,0 +1,232 @@
+"""Block-sparse MCL for oversize components: dense (mb, mb) tiles
+multiplied with ``torch.bmm``.
+
+Port of ``swiftortho_tpu/cluster/mcl_blocksparse.py``; the same loop as
+the reference ``mcl`` (bin/find_cluster.py:652-689) and ``mcl._mcl_sparse``:
+column L1-normalize (+1e-8) -> snapshot every `check` iters -> expansion
+x@x -> inflation data**I -> convergence max(|x-x_old| - rtol|x_old|) <=
+atol at check iters -> prune < 1e-5.  The matrix is a set of dense
+mb x mb tiles keyed by ``tI * nt + tJ`` (block-CSR); expansion is
+y[I,J] += x[I,K] @ x[K,J] over the present tile pairs.  Fill-in
+materializes new tiles; pruning drops all-zero tiles.
+
+What changed from the JAX version:
+- No padding.  The JAX package pads tile and pair counts to powers of
+  two (``_bucket``) only to bound its jit cache, and sends padded pairs
+  to a sink tile that a valid-mask zeroes.  Eager torch has no such
+  cache, so every tensor here has exactly the live tile count and no
+  sink tile exists; no step needs one.  The padding tiles were all-zero
+  and the sink tile was dropped, so the surviving (row, col) entries are
+  the same.
+- Fixed sum order.  Column sums and the output-tile accumulation add in
+  the JAX package's sequential order (``numerics.SegmentSum``; for the
+  expansion, pair rank by pair rank), so a run on CUDA is bitwise
+  repeatable.
+- One device, no mesh (the sharded expansion is not ported).
+
+Float caveat (named deviation, as in the JAX package): tile-level matmul
+accumulation order differs from csr row-order accumulation, so borderline
+prune/convergence floats can differ in the last ulp vs the scipy path;
+partitions are compared, not floats.
+"""
+
+from __future__ import annotations
+
+from time import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from swiftortho_tpu.utils import log_event
+
+from .numerics import SegmentSum, highest_matmul_precision, rank_groups
+
+_PAIR_CHUNK = 512           # max tile pairs per batched matmul
+
+
+def _normalize(data: torch.Tensor, tJ: np.ndarray, nt: int) -> torch.Tensor:
+    """Column L1-normalize across the global block-columns; tJ maps each
+    tile to its block-column."""
+    per_tile = data.sum(dim=1)                       # (T, mb)
+    cs = SegmentSum(tJ, nt, data.device)(per_tile)   # (nt, mb)
+    idx = torch.from_numpy(tJ).to(data.device)
+    denom = cs.index_select(0, idx)[:, None, :] + 1e-8
+    return data / denom
+
+
+def _expand_device(data: torch.Tensor, lhs: np.ndarray, rhs: np.ndarray,
+                   oidx: np.ndarray, n_out: int) -> torch.Tensor:
+    """y[oidx] += data[lhs] @ data[rhs].  Each output tile sums its
+    products in pair order: rank k of every output tile is added in step
+    k, in chunks of at most _PAIR_CHUNK pairs (a step's outputs are
+    distinct, so chunking does not change the order)."""
+    mb = data.shape[1]
+    dev = data.device
+    out = torch.zeros((n_out, mb, mb), dtype=data.dtype, device=dev)
+    with highest_matmul_precision():
+        for pos in rank_groups(oidx):
+            for c0 in range(0, len(pos), _PAIR_CHUNK):
+                p = pos[c0:c0 + _PAIR_CHUNK]
+                lt = torch.from_numpy(lhs[p]).to(dev)
+                rt = torch.from_numpy(rhs[p]).to(dev)
+                ot = torch.from_numpy(oidx[p]).to(dev)
+                prod = torch.bmm(data.index_select(0, lt),
+                                 data.index_select(0, rt))
+                out.index_add_(0, ot, prod)
+    return out
+
+
+def _inflate_prune(data: torch.Tensor, inflation: float, prune: float):
+    """Inflation, prune, per-tile max."""
+    data = torch.pow(data, inflation)
+    data = torch.where(data < prune, 0.0, data)
+    return data, data.amax(dim=(1, 2))
+
+
+def _conv_metric(y: torch.Tensor, pos_y: np.ndarray, x: torch.Tensor,
+                 pos_x: np.ndarray, rtol: float, n_union: int) -> float:
+    """max(|y - x| - rtol|x|) with both tile sets placed on their key
+    union (absent tiles are zero)."""
+    mb = y.shape[1]
+    dev = y.device
+    ya = torch.zeros((n_union, mb, mb), dtype=y.dtype, device=dev)
+    xa = torch.zeros((n_union, mb, mb), dtype=x.dtype, device=dev)
+    ya[torch.from_numpy(pos_y).to(dev)] = y
+    xa[torch.from_numpy(pos_x).to(dev)] = x
+    return float(((ya - xa).abs() - rtol * xa.abs()).max())
+
+
+def _pair_lists(keys: np.ndarray, nt: int):
+    """All (lhs, rhs) tile pairs sharing a middle block index K, and the
+    dense output-tile ids they accumulate into (numpy, copied from the
+    JAX package).
+
+    Fully vectorized (no per-K Python loop): per-K cartesian products are
+    enumerated by a searchsorted over the cumulative pair counts."""
+    tI = keys // nt
+    tJ = keys % nt
+    order_col = np.argsort(tJ, kind='stable')       # lhs grouped by K=tJ
+    order_row = np.argsort(tI, kind='stable')       # rhs grouped by K=tI
+    colK = tJ[order_col]
+    rowK = tI[order_row]
+    cb = np.searchsorted(colK, np.arange(nt + 1))
+    rb = np.searchsorted(rowK, np.arange(nt + 1))
+    cA = cb[1:] - cb[:-1]                           # lhs tiles per K
+    cB = rb[1:] - rb[:-1]                           # rhs tiles per K
+    nk = cA.astype(np.int64) * cB                   # pairs per K
+    total = int(nk.sum())
+    if total == 0:
+        return None
+    # pair p belongs to block-K = the cumsum bucket containing p; within
+    # the K-block, lhs advances every cB[K] pairs and rhs cycles
+    ends = np.cumsum(nk)
+    p = np.arange(total, dtype=np.int64)
+    K = np.searchsorted(ends, p, side='right')
+    within = p - (ends[K] - nk[K])
+    lhs = order_col[cb[K] + within // cB[K]]
+    rhs = order_row[rb[K] + within % cB[K]]
+    out_key = tI[lhs] * nt + tJ[rhs]
+    return lhs, rhs, out_key
+
+
+def mcl_blocksparse(m: int, li: np.ndarray, lj: np.ndarray,
+                    w: np.ndarray, selfw: np.ndarray,
+                    inflation: float, prune: float = 1e-5,
+                    rtol: float = 1e-5, atol: float = 1e-8,
+                    itr: int = 100, check: int = 5,
+                    mb: int = 1024, ckpt=None,
+                    ckpt_key: str = '',
+                    device: torch.device | None = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Run MCL on one m-node component given symmetric local edges
+    (li, lj, w) and per-node self-loop weights, with the tiles on
+    ``device`` (default: the CPU); returns the surviving (row, col) entry
+    coordinates (> prune) for component extraction.
+
+    ``ckpt`` (``swiftortho_tpu/cluster/checkpoint.py``
+    ClusterCheckpoint): when given, the (keys, tiles) state is persisted
+    as sparse COO at the end of every iteration preceding a convergence
+    check, and a later call restores it and continues from that
+    iteration instead of 0.
+
+    Logs an ``mcl_blocksparse`` event: iterations run, seconds, the
+    largest tile and pair counts.
+    """
+    t0 = time()
+    device = torch.device('cpu') if device is None else device
+    nt = -(-m // mb)
+    start_i = 0
+    state = ckpt.load_state(ckpt_key) if ckpt is not None else None
+    if (state is not None and int(state['m']) == m
+            and int(state['mb']) == mb):
+        keys = state['keys']
+        data_h = np.zeros((len(keys), mb, mb), np.float32)
+        data_h[state['ti'], state['ri'], state['rj']] = state['val']
+        start_i = int(state['i_next'])
+    else:
+        # build initial tiles (symmetric + self-loops; duplicate pairs:
+        # last assignment wins, like the reference's lil construction)
+        ei = np.concatenate([li, lj, np.arange(m, dtype=np.int64)])
+        ej = np.concatenate([lj, li, np.arange(m, dtype=np.int64)])
+        ew = np.concatenate([w, w, selfw]).astype(np.float32)
+        key = (ei // mb) * nt + (ej // mb)
+        keys, inv = np.unique(key, return_inverse=True)
+        data_h = np.zeros((len(keys), mb, mb), np.float32)
+        data_h[inv, ei % mb, ej % mb] = ew
+    data = torch.from_numpy(data_h).to(device)       # (T, mb, mb)
+    del data_h
+
+    old_keys, old_data = None, None
+    iters = max_tiles = max_pairs = 0
+    for i in range(start_i, itr):
+        iters += 1
+        data = _normalize(data, keys % nt, nt)
+        if i % check == 0:
+            old_keys, old_data = keys, data
+
+        # --- expansion: host pairing, device products ---
+        pl = _pair_lists(keys, nt)
+        if pl is None:
+            break
+        lhs, rhs, out_key = pl
+        new_keys, out_idx = np.unique(out_key, return_inverse=True)
+        max_tiles = max(max_tiles, len(new_keys))
+        max_pairs = max(max_pairs, len(lhs))
+        data = _expand_device(data, lhs, rhs, out_idx.astype(np.int64),
+                              len(new_keys))
+        keys = new_keys
+        data, tmax = _inflate_prune(data, float(inflation), prune)
+
+        if i % check == 0 and i > 0:
+            union = np.union1d(keys, old_keys)
+            dm = _conv_metric(data, np.searchsorted(union, keys),
+                              old_data, np.searchsorted(union, old_keys),
+                              rtol, len(union))
+            if dm <= atol:
+                break
+
+        alive = np.flatnonzero(tmax.cpu().numpy() > 0.0)
+        if len(alive) == 0:
+            return (np.zeros(0, np.int64),) * 2
+        if len(alive) < len(keys):
+            keys = keys[alive]
+            data = data.index_select(0, torch.from_numpy(alive).to(device))
+
+        if ckpt is not None and (i + 1) % check == 0:
+            # end-of-iteration state right before the next snapshot: the
+            # next iteration re-derives old_* itself, so (keys, tiles,
+            # i_next) is the complete resume state
+            dh = data.cpu().numpy()
+            ti, ri, rj = np.nonzero(dh)
+            ckpt.save_state(ckpt_key, m=m, mb=mb, i_next=i + 1, keys=keys,
+                            ti=ti, ri=ri, rj=rj, val=dh[ti, ri, rj])
+    t, ri, rj = (v.cpu().numpy() for v in torch.nonzero(data > prune,
+                                                         as_tuple=True))
+    gi = (keys[t] // nt) * mb + ri
+    gj = (keys[t] % nt) * mb + rj
+    ok = (gi < m) & (gj < m)
+    log_event('mcl_blocksparse', m=m, mb=mb, start=start_i,
+              iterations=iters, seconds=round(time() - t0, 4),
+              max_tiles=max_tiles, max_pairs=max_pairs)
+    return gi[ok].astype(np.int64), gj[ok].astype(np.int64)

@@ -17,17 +17,26 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(swiftortho_tpu_torch.__file__).parent
 
 # Runs with jax made unimportable: every port module imports, and the
-# find_hit CLI searches a 3-record fasta on the CPU.
+# find_hit, find_orth, find_cluster and run_all CLIs run on a 3-record
+# fasta on the CPU.
 _NO_JAX = r'''
-import importlib, pkgutil, sys
+import contextlib, importlib, io, pkgutil, sys
 sys.modules['jax'] = None
 import swiftortho_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
-from swiftortho_tpu_torch.cli.find_hit import main
-assert main(['find_hit', '-p', 'blastp', '-i', sys.argv[1], '-d', sys.argv[1],
-             '-o', sys.argv[2]]) == 0
+from swiftortho_tpu_torch.cli import find_cluster, find_hit, find_orth, run_all
+fsa, sc = sys.argv[1], sys.argv[2]
+assert find_hit.main(['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
+                      '-o', sc]) == 0
+with open(sc + '.opc', 'w') as f, contextlib.redirect_stdout(f):
+    assert find_orth.main(['find_orth', '-i', sc]) == 0
+with open(sc + '.clsr', 'w') as f, contextlib.redirect_stdout(f):
+    assert find_cluster.main(['find_cluster', '-i', sc + '.opc',
+                              '-a', 'mcl']) == 0
+with contextlib.redirect_stdout(io.StringIO()):
+    assert run_all.main(['run_all', '-i', fsa, '-A', 'mcl']) == 0
 assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')
             if sys.modules[m] is not None]
 print(len(names))
@@ -44,10 +53,16 @@ def test_port_runs_without_jax(tmp_path):
     r = subprocess.run([sys.executable, '-c', _NO_JAX, str(fsa), str(out)],
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 9          # every module imported
+    assert int(r.stdout.split()[-1]) >= 20         # every module imported
     rows = out.read_text().splitlines()
     assert len(rows) == 9                          # 3 x 3 hits
     assert all(len(row.split('\t')) == 16 for row in rows)
+    assert (tmp_path / 'three.sc.opc').read_text().count('\n') == 3
+    assert (tmp_path / 'three.sc.clsr').read_text().split() == [
+        'a|1', 'b|1', 'c|1']
+    res = tmp_path / 'three.fsa_results'
+    for ext in ('sc', 'opc', 'clsr', 'pan'):
+        assert (res / ('three.fsa.' + ext)).stat().st_size > 0
 
 
 def test_no_jax_import_in_sources():

@@ -1,0 +1,140 @@
+"""The port's pipeline CLIs (find_orth, find_cluster, run_all, scripts)
+against the JAX package's, on the CPU (SWIFTORTHO_PLATFORM=cpu) and the
+tests/test_cli.py corpus: output bytes equal.
+
+The JAX package is imported inside the tests that use it.
+"""
+
+import os
+import shutil
+
+import pytest
+
+from swiftortho_tpu.corpus import make_corpus, write_corpus
+from swiftortho_tpu_torch.cli import find_cluster as port_cluster
+from swiftortho_tpu_torch.cli import find_hit as port_hit
+from swiftortho_tpu_torch.cli import find_orth as port_orth
+from swiftortho_tpu_torch.cli import run_all as port_run_all
+from swiftortho_tpu_torch.cli import scripts as port_scripts
+
+OUTPUTS = ('sc', 'opc', 'clsr', 'pan')
+
+
+@pytest.fixture(autouse=True)
+def cpu_platform(monkeypatch):
+    monkeypatch.setenv('SWIFTORTHO_PLATFORM', 'cpu')
+    monkeypatch.setenv('SWIFTORTHO_JAX_CACHE', '0')
+
+
+@pytest.fixture(scope='module')
+def corpus(tmp_path_factory):
+    fsa = str(tmp_path_factory.mktemp('pipe') / 'c.fsa')
+    write_corpus(fsa, make_corpus(n_taxa=2, n_families=6, seed=2,
+                                  min_len=60, max_len=120))
+    return fsa
+
+
+@pytest.fixture(scope='module')
+def sc(corpus):
+    out = corpus + '.sc'
+    mp = pytest.MonkeyPatch()
+    mp.setenv('SWIFTORTHO_PLATFORM', 'cpu')
+    try:
+        assert port_hit.main(['find_hit', '-p', 'blastp', '-i', corpus,
+                              '-d', corpus, '-o', out, '-e', '1e-5']) == 0
+    finally:
+        mp.undo()
+    return out
+
+
+def stdout_of(main, argv, capsys):
+    capsys.readouterr()
+    assert main(argv) == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize('flags', [[], ['-y', '50', '-n', 'bsr']])
+def test_find_orth_matches_jax_cli(sc, flags, capsys):
+    from swiftortho_tpu.cli import find_orth as jax_orth
+    argv = ['find_orth', '-i', sc] + flags
+    want = stdout_of(jax_orth.main, argv, capsys)
+    assert want.count('\n') > 5
+    assert stdout_of(port_orth.main, argv, capsys) == want
+
+
+@pytest.mark.parametrize('algo', ['mcl', 'apc', 'sap'])
+def test_find_cluster_matches_jax_cli(sc, algo, tmp_path, capsys):
+    from swiftortho_tpu.cli import find_cluster as jax_cluster
+    opc = str(tmp_path / 'c.opc')
+    with open(opc, 'w') as f:
+        f.write(stdout_of(port_orth.main, ['find_orth', '-i', sc], capsys))
+    argv = ['find_cluster', '-i', opc, '-a', algo]
+    want = stdout_of(jax_cluster.main, argv, capsys)
+    assert want.count('\n') >= 3
+    assert stdout_of(port_cluster.main, argv, capsys) == want
+
+
+def run_pipeline(main, corpus, where, flags):
+    os.makedirs(where)
+    fsa = os.path.join(where, 'c.fsa')
+    shutil.copy(corpus, fsa)
+    assert main(['run_all', '-i', fsa, '-A', 'mcl', '-y', '0'] + flags) == 0
+    res = fsa + '_results'
+    out = {}
+    for ext in OUTPUTS:
+        with open(os.path.join(res, 'c.fsa.' + ext), 'rb') as f:
+            out[ext] = f.read()
+    return fsa, out
+
+
+@pytest.mark.parametrize('flags', [[], ['-z', 'fast']])
+def test_run_all_matches_jax(corpus, flags, tmp_path):
+    from swiftortho_tpu.cli import run_all as jax_run_all
+    _, want = run_pipeline(jax_run_all.main, corpus, str(tmp_path / 'j'),
+                           flags)
+    _, got = run_pipeline(port_run_all.main, corpus, str(tmp_path / 'p'),
+                          flags)
+    for ext in OUTPUTS:
+        assert got[ext] == want[ext], ext
+    assert want['clsr'].count(b'\n') >= 3
+
+
+def test_run_all_resume_skips_fresh_stages(corpus, tmp_path, monkeypatch,
+                                           capsys):
+    fsa, first = run_pipeline(port_run_all.main, corpus,
+                              str(tmp_path / 'p'), [])
+
+    def boom(*a, **k):
+        raise AssertionError('a fresh stage was recomputed')
+    monkeypatch.setattr(port_run_all, 'blastp_to_file', boom)
+    monkeypatch.setattr(port_run_all, 'find_orth_blocks', boom)
+    monkeypatch.setattr(port_run_all, 'find_cluster_stream', boom)
+    capsys.readouterr()
+    assert port_run_all.main(['run_all', '-i', fsa, '-A', 'mcl', '-y', '0',
+                              '-R', 'y']) == 0
+    assert capsys.readouterr().err.count('"skipped": true') == 3
+    for ext in OUTPUTS:
+        with open('%s_results/c.fsa.%s' % (fsa, ext), 'rb') as f:
+            assert f.read() == first[ext]
+
+
+def test_run_all_fleet_not_ported(corpus, monkeypatch):
+    monkeypatch.setenv('SWIFTORTHO_COORD', 'localhost:1234')
+    with pytest.raises(NotImplementedError, match='SWIFTORTHO_COORD'):
+        port_run_all.main(['run_all', '-i', corpus])
+
+
+def test_scripts_dispatch_to_jax_commands(sc, capsys):
+    from swiftortho_tpu.cli import scripts as jax_scripts
+    want = stdout_of(jax_scripts.main, ['get_rbh', sc], capsys)
+    assert want
+    assert stdout_of(port_scripts.main, ['get_rbh', sc], capsys) == want
+    assert port_scripts.main(['nonsense']) == 1
+    assert 'names:' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('main', [port_orth.main, port_cluster.main,
+                                  port_run_all.main])
+def test_usage_errors(main, capsys):
+    assert main(['prog']) == 1
+    assert 'Usage' in capsys.readouterr().out
