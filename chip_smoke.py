@@ -9,7 +9,14 @@ port's paths on the card, each checked against the JAX package's
 digests (pinned below, computed with the JAX package on the CPU):
 
 - the find_hit all-vs-all search at the size of the 10-genome
-  configuration (41,168 sequences): the m8 table byte for byte;
+  configuration (41,168 sequences): the m8 table byte for byte, on the
+  default route and on the device route (SWIFTORTHO_INDEX=device,
+  SWIFTORTHO_CANDIDATES=device, SWIFTORTHO_DEVICE_PACK=force: index,
+  candidates and pair packing on the card);
+- the device routes on the 1,034-sequence corpus, each alone, all
+  together, with a partial pair table and with a posting cap that cuts
+  stage 2 into row blocks; and the device index and candidate engine on
+  the 41k corpus against the host build and engine, array for array;
 - find_orth on that table, and find_cluster on the orthology graph it
   writes (mcl on cuda and cpu, textbook apc and sap on cuda, twice each,
   and the host's faithful apc): output md5s;
@@ -20,8 +27,9 @@ digests (pinned below, computed with the JAX package on the CPU):
   runs beside the search and clustering phases: .sc .opc .clsr .pan md5s.
 
 Imports no JAX.  Each phase prints one JSON line: device, build,
-kernel_parity, kernel_time, search_parity, search, orth, cluster_parity,
-cluster_scale, pipeline.  Any failed check exits nonzero before the
+kernel_parity, kernel_time, search_parity, device_search_parity, search,
+device_components, search_device, orth, cluster_parity, cluster_scale,
+pipeline.  Any failed check exits nonzero before the
 result lines.  The last three lines are the card's
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line,
 the kernels JSON object and {"ok": true, "device": {...}}.
@@ -296,10 +304,35 @@ def events_of(stderr_text):
             stderr_text.splitlines() if ln.startswith('[swiftortho] {')]
 
 
-def run_find_hit(fsa, out, platform):
+def run_find_hit(fsa, out, platform, **env):
     from swiftortho_tpu_torch.cli.find_hit import main
     return run_cli(main, ['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
-                          '-o', out], platform)
+                          '-o', out], platform, **env)
+
+
+DEVICE_ROUTES = {'SWIFTORTHO_INDEX': 'device',
+                 'SWIFTORTHO_CANDIDATES': 'device',
+                 'SWIFTORTHO_DEVICE_PACK': 'force'}
+FALLBACKS = ('device_index_fallback', 'device_candidates_fallback')
+
+
+def route_pairs(events):
+    """(packed, host-gathered) pairs over a search's waves."""
+    waves = [e for e in events if e['stage'] == 'search_wave']
+    return (sum(w['packed_pairs'] for w in waves),
+            sum(w['gathered_pairs'] for w in waves))
+
+
+def stage_split(events):
+    """Summed seconds per stage of the device index and engine."""
+    out = {}
+    for e in events:
+        if e['stage'] in ('device_index', 'device_candidates'):
+            pre = 'index_' if e['stage'] == 'device_index' else 'cand_'
+            for k, v in e.items():
+                if k.endswith('_s'):
+                    out[pre + k] = round(out.get(pre + k, 0.0) + v, 4)
+    return out
 
 
 def write_corpus_checked(tmp, name, spec, want_md5):
@@ -334,6 +367,62 @@ def phase_search_parity(tmp):
          cuda_s=round(secs['cuda'], 3), cpu_s=round(secs['cpu'], 3))
 
 
+def phase_device_search_parity(tmp, torch):
+    """The device routes on SMALL on cuda: each alone, all three, a
+    partial pair table (hot-set pick) and a posting cap that cuts stage 2
+    into >= 4 row blocks; every .sc md5 equal to the JAX package's."""
+    from swiftortho_tpu.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops.device_pack import DevicePackContext
+    fsa = os.path.join(tmp, 'small.fsa')
+    check(md5(fsa) == SMALL_FSA_MD5, 'small.fsa missing or changed')
+    db = SeqDB.from_path(fsa)
+    stride = DevicePackContext(db, torch.device('cuda')).stride
+    runs = [(k, {k: v}) for k, v in DEVICE_ROUTES.items()]
+    runs += [('all', dict(DEVICE_ROUTES)),
+             ('pack_half_table', {'SWIFTORTHO_DEVICE_PACK': 'force',
+                                  'SWIFTORTHO_PACK_CAP':
+                                      str(len(db) // 2 * stride)})]
+    rows, postings = [], None
+    t_phase = time.time()
+    for name, env in runs + [('cand_row_blocks', None)]:
+        if env is None:
+            # cap: at most a fifth of the wave's postings (>= 5 blocks),
+            # at least the largest query's (no host fallback)
+            check(postings is not None, 'no device_candidates event')
+            cap = max(postings[1], postings[0] // 5)
+            env = {'SWIFTORTHO_CANDIDATES': 'device',
+                   'SWIFTORTHO_DEVICE_CAND_CAP': str(cap)}
+        out = os.path.join(tmp, 'small.%s.sc' % name)
+        secs, events = run_find_hit(fsa, out, 'cuda', **env)
+        got = md5(out)
+        check(got == SMALL_SC_MD5, '%s: .sc md5 %s != the JAX package\'s %s'
+              % (name, got, SMALL_SC_MD5))
+        check(not [e for e in events if e['stage'] in FALLBACKS],
+              '%s: a device route fell back to the host' % name)
+        packed, gathered = route_pairs(events)
+        cands = [e for e in events if e['stage'] == 'device_candidates']
+        row = {'run': name, 'env': env, 'sc_md5': got,
+               'seconds': round(secs, 3), 'packed_pairs': packed,
+               'gathered_pairs': gathered}
+        if env.get('SWIFTORTHO_DEVICE_PACK') == 'force':
+            check(packed > 0, '%s: no pair was packed' % name)
+        if name == 'pack_half_table':
+            check(gathered > 0, '%s: no pair took the host gather' % name)
+        if name == 'SWIFTORTHO_CANDIDATES':
+            postings = (sum(e['postings'] for e in cands),
+                        max(e['max_row_postings'] for e in cands))
+        if name == 'cand_row_blocks':
+            chunked = [e for e in events
+                       if e['stage'] == 'device_candidates_chunked']
+            check(chunked and min(e['blocks'] for e in chunked) >= 4,
+                  'posting cap %s gave no >= 4-block stage 2: %s'
+                  % (env['SWIFTORTHO_DEVICE_CAND_CAP'], chunked))
+            row['blocks'] = [e['blocks'] for e in chunked]
+        rows.append(row)
+    emit('device_search_parity', sequences=len(db), runs=rows,
+         seconds=round(time.time() - t_phase, 3))
+
+
 def phase_search(tmp, torch):
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     fsa, n = write_corpus_checked(tmp, 'big.fsa', BIG, BIG_FSA_MD5)
@@ -355,14 +444,137 @@ def phase_search(tmp, torch):
     check(waves and pa, 'search logged no waves or no phase A')
     with open(out, 'rb') as f:
         rows = sum(1 for _ in f)
-    emit('search', sequences=n, rows=rows, sc_md5=got,
-         wall_s=round(wall, 3), index_s=pa[0]['idx_wait_s'],
-         phaseA_s=pa[0]['cand_s'],
-         align_s=round(sum(w['align1_s'] for w in waves), 3),
-         policy_s=round(sum(w['policy_s'] for w in waves), 3),
-         waves=len(waves),
-         candidate_pairs=sum(w['pairs'] for w in waves),
-         pairs_aligned=aligned, launches=launches, peak_device_bytes=peak)
+    res = dict(sequences=n, rows=rows, sc_md5=got,
+               wall_s=round(wall, 3), index_s=pa[0]['idx_wait_s'],
+               phaseA_s=pa[0]['cand_s'],
+               align_s=round(sum(w['align1_s'] for w in waves), 3),
+               policy_s=round(sum(w['policy_s'] for w in waves), 3),
+               waves=len(waves),
+               candidate_pairs=sum(w['pairs'] for w in waves),
+               pairs_aligned=aligned, launches=launches,
+               peak_device_bytes=peak)
+    emit('search', **res)
+    return res
+
+
+def phase_device_components(tmp, np, torch):
+    """On the 41k corpus: the cuda index of the first chunk against the
+    host build_index, and the device engine on the first 4,096-query wave
+    against the host engine (twice: cold, then warm), with stage times."""
+    from swiftortho_tpu.config import SearchConfig
+    from swiftortho_tpu.io_fasta import SeqDB
+    from swiftortho_tpu.ops.index import build_index
+    from swiftortho_tpu.search.candidates import generate_candidates
+    from swiftortho_tpu_torch.ops.index_device import build_index_device
+    from swiftortho_tpu_torch.search.blastp import _mask_queries
+    from swiftortho_tpu_torch.search.candidates_device import \
+        generate_candidates_device
+    cuda = torch.device('cuda')
+    fsa = os.path.join(tmp, 'big.fsa')
+    check(md5(fsa) == BIG_FSA_MD5, 'big.fsa missing or changed')
+    db = SeqDB.from_path(fsa)
+    cfg = SearchConfig()
+    alphabets = cfg.resolved_alphabets()
+    args = (db, 0, min(cfg.effective_chunk(), len(db)), alphabets, cfg.seeds,
+            cfg.nc, cfg.step)
+    t0 = time.time()
+    host = build_index(*args, threshold_override=cfg.threshold)
+    host_index_s = time.time() - t0
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stderr(buf):
+        dev = build_index_device(*args, threshold_override=cfg.threshold,
+                                 device=cuda)
+    device_index_s = time.time() - t0
+    for f in ('start', 'locus', 'soas'):
+        check(np.array_equal(getattr(host, f), getattr(dev, f)),
+              'device index %s != host build_index' % f)
+    check(host.threshold == dev.threshold, 'device index threshold %s != %s'
+          % (dev.threshold, host.threshold))
+    idx_ev = events_of(buf.getvalue())[-1]
+
+    maxq = int(db.lengths.max())
+    pad = max(64, 1 << max(0, (maxq - 1).bit_length()))
+    nq = min(cfg.query_batch, len(db))
+    toks, lens = _mask_queries(db, np.arange(nq, dtype=np.int64), pad, True)
+    t0 = time.time()
+    want = generate_candidates(toks, lens, db, host, alphabets, cfg.seeds)
+    host_cand_s = time.time() - t0
+    runs = []
+    for rep in range(2):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stderr(buf):
+            got = generate_candidates_device(toks, lens, db, dev, alphabets,
+                                             cfg.seeds, device=cuda)
+        secs = time.time() - t0
+        for f in ('qrow', 'subject', 'score', 'band_q', 'band_s'):
+            check(np.array_equal(getattr(got, f), getattr(want, f)),
+                  'device candidates %s != host generate_candidates' % f)
+        ev = [e for e in events_of(buf.getvalue())
+              if e['stage'] == 'device_candidates']
+        check(ev, 'no device_candidates event (fell back?)')
+        runs.append({'seconds': round(secs, 4),
+                     **{k: v for k, v in ev[0].items()
+                        if k not in ('ts', 'stage', 'device')}})
+    emit('device_components', sequences=len(db), index_T=idx_ev['T'],
+         postings=idx_ev['postings'], threshold=dev.threshold,
+         index_equal=True, host_index_s=round(host_index_s, 4),
+         device_index_s=round(device_index_s, 4),
+         device_index_stages={k: v for k, v in idx_ev.items()
+                              if k.endswith('_s')},
+         wave=[nq, pad], candidates=len(want.subject), candidates_equal=True,
+         host_candidates_s=round(host_cand_s, 4), device_candidates=runs)
+
+
+def phase_search_device(tmp, torch, default):
+    """The 41k search with the three device routes: the .sc md5, no
+    fallback, every pair packed on the card and both kernel variants
+    launched through the packed route; beside the default route."""
+    from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+    from swiftortho_tpu_torch.ops import device_pack
+    fsa = os.path.join(tmp, 'big.fsa')
+    out = os.path.join(tmp, 'big.device.sc')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cu.reset_counters()
+    device_pack.reset_prof()
+    wall, events = run_find_hit(fsa, out, 'cuda', **DEVICE_ROUTES)
+    launches = dict(cu.launches)
+    aligned = dict(cu.pairs)
+    packed_calls = dict(device_pack.PROF['calls'])
+    peak = torch.cuda.max_memory_allocated()
+    got = md5(out)
+    check(got == BIG_SC_MD5, 'device route: .sc md5 %s != the JAX '
+          'package\'s %s' % (got, BIG_SC_MD5))
+    fb = [e for e in events if e['stage'] in FALLBACKS]
+    check(not fb, 'device route fell back to the host: %s' % fb[:3])
+    packed, gathered = route_pairs(events)
+    check(packed > 0 and gathered == 0,
+          'pairs packed %d, host-gathered %d' % (packed, gathered))
+    check(launches['full'] > 0 and launches['score_only'] > 0
+          and packed_calls == launches,
+          'kernel launches %s, of them through the packed route %s'
+          % (launches, packed_calls))
+    waves = [e for e in events if e['stage'] == 'search_wave']
+    pa = [e for e in events if e['stage'] == 'search_phaseA']
+    check(waves and pa, 'search logged no waves or no phase A')
+    res = dict(sc_md5=got, wall_s=round(wall, 3),
+               index_s=pa[0]['idx_wait_s'], phaseA_s=pa[0]['cand_s'],
+               align_s=round(sum(w['align1_s'] for w in waves), 3),
+               policy_s=round(sum(w['policy_s'] for w in waves), 3),
+               waves=len(waves), packed_pairs=packed,
+               gathered_pairs=gathered,
+               pack_s=round(device_pack.PROF['pack_s'], 4),
+               packed_align_s=round(device_pack.PROF['align_s'], 4),
+               stages=stage_split(events), pairs_aligned=aligned,
+               launches=launches, peak_device_bytes=peak)
+    emit('search_device', **res,
+         default_route={k: default[k] for k in
+                        ('wall_s', 'index_s', 'phaseA_s', 'align_s',
+                         'policy_s', 'launches', 'peak_device_bytes')})
     return launches
 
 
@@ -680,8 +892,9 @@ def phase_pipeline(pipe):
          run_all_s=round(res['seconds'], 3), stage_s=stages,
          seconds=round(time.time() - pipe['t0'], 3),
          waited_s=round(waited, 3),
-         ran_beside='search_parity, search, orth, cluster_parity, '
-                    'cluster_scale')
+         ran_beside='search_parity, device_search_parity, search, '
+                    'device_components, search_device, orth, '
+                    'cluster_parity, cluster_scale')
 
 
 def main():
@@ -696,7 +909,11 @@ def main():
         pipe = start_pipeline(tmp)
         try:
             phase_search_parity(tmp)
-            launches = phase_search(tmp, torch)
+            phase_device_search_parity(tmp, torch)
+            default = phase_search(tmp, torch)
+            launches = default['launches']
+            phase_device_components(tmp, np, torch)
+            packed = phase_search_device(tmp, torch, default)
             opc = phase_orth(tmp)
             phase_cluster_parity(tmp, opc, torch)
             phase_cluster_scale(np, torch)
@@ -711,7 +928,10 @@ def main():
                and sys.modules[m] is not None], 'jax was imported')
     kernels = [{'name': 'banded_sw_' + var, 'route': 'cuda',
                 'source': SOURCE, 'replaces': REPLACES,
-                'launches': launches[var], 'max_abs_err': max_err[var],
+                'launches': launches[var],
+                'launches_by_route': {'host_gather': launches[var],
+                                      'device_pack': packed[var]},
+                'max_abs_err': max_err[var],
                 'ms': times[var]['ms'], 'plain_ms': times[var]['plain_ms']}
                for var in ('full', 'score_only')]
     emit('done', seconds=round(time.time() - T_START, 1))

@@ -10,6 +10,7 @@ versions of the kernels.
 from __future__ import annotations
 
 import os
+import time
 
 import torch
 
@@ -28,3 +29,30 @@ def get_device() -> torch.device:
             'False; set SWIFTORTHO_PLATFORM=cpu to run the plain PyTorch '
             'path on the CPU')
     return torch.device(plat)
+
+
+def synchronize(device: torch.device):
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+class StageClock:
+    """Seconds per named stage of device work.  ``mark(name)`` waits for
+    the device to finish what was queued so far and charges the time
+    since the previous mark to ``name``, so a stage's seconds are its
+    device time plus the host time spent between the two marks."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds: dict = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name: str):
+        synchronize(self.device)
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
+        self._t = now
+
+    def rounded(self, digits: int = 4) -> dict:
+        return {k + '_s': round(v, digits) for k, v in self.seconds.items()}

@@ -22,14 +22,21 @@ skipped costs extra FLOPs but changes nothing observable).
 
 Port of ``swiftortho_tpu/search/blastp.py`` onto PyTorch; the output is
 byte-identical to it.  What differs is the schedule and the device:
-- every bucket is gathered on the host (``gather_rows``) and copied to
-  ``device``; the banded SW runs there (``ops.banded_sw.sw_align_auto``:
-  the CUDA kernel on a card, the plain version on the CPU);
+- by default every bucket is gathered on the host (``gather_rows``) and
+  copied to ``device``; the banded SW runs there
+  (``ops.banded_sw.sw_align_auto``: the CUDA kernel on a card, the plain
+  version on the CPU);
 - the score-only prepass runs when ``use_prepass(device)`` says so (on
   CUDA), the wave pipeline is ``SWIFTORTHO_WAVE_PIPELINE`` wide (default
   1);
-- the device candidate engine, the device index build and the multi-db
-  shard path are not ported (``NotImplementedError``).
+- three opt-in routes move the search onto ``device``, each writing the
+  same rows: ``SWIFTORTHO_INDEX=device`` builds the chunk indexes there
+  (``ops.index_device``), ``SWIFTORTHO_CANDIDATES=device`` runs the
+  candidate engine there (``search.candidates_device``) and
+  ``SWIFTORTHO_DEVICE_PACK=force`` packs the pair tokens there from
+  resident tables (``ops.device_pack``);
+- the multi-db shard path (``SWIFTORTHO_CANDIDATES=multidb``) is not
+  ported (``NotImplementedError``).
 
 Named deviation (tie order): the reference ranks candidates and final m8
 rows with seeded UNSTABLE quicksorts (fsearch.py qsort :189-327, final sort
@@ -95,10 +102,18 @@ def _align_on(device, t0, t1, l0, l1, score_only: bool = False) -> dict:
 
 def _align_pairs(q_tokens, q_lengths, db: SeqDB, qrow, subject,
                  band_q, band_s, buckets, device: torch.device,
-                 score_only: bool = False) -> dict:
+                 score_only: bool = False, pack_ctx=None,
+                 route: dict | None = None) -> dict:
     """Align candidate pairs with the reference swap rule, bucketed by
     padded suffix length, on ``device``.  Returns reference-coordinate
-    results."""
+    results.
+
+    ``pack_ctx`` (ops.device_pack.DevicePackContext): when active, pairs
+    whose subject fits the device token table are packed on the device
+    from per-pair integers; the rest, and every pair when inactive, go
+    through the host gather.  Both feed the same kernel and give the same
+    results.  ``route`` ({'packed', 'gathered'}) counts the pairs of each.
+    """
     n = len(qrow)
     lq = q_lengths[qrow].astype(np.int64)
     ls = (db.offsets[subject + 1] - db.offsets[subject]).astype(np.int64)
@@ -117,9 +132,45 @@ def _align_pairs(q_tokens, q_lengths, db: SeqDB, qrow, subject,
 
     order = np.argsort(pad_need, kind='stable')
     L = q_tokens.shape[1]
+    route = {'packed': 0, 'gathered': 0} if route is None else route
+
+    pack_on = pack_ctx is not None and pack_ctx.active()
+    if pack_on:
+        # first wave with a partial table: pick the hot resident set
+        # from this wave's merged-across-chunks subject sample
+        pack_ctx.maybe_select(subject)
+        wave_handle = pack_ctx.wave_table(q_tokens)
+
+    def run_bucket_dev(sel, bucket):
+        sw = swapped[sel]
+        sid = pack_ctx.row_of[subject[sel]]   # device table rows
+        qr = pack_ctx.n_db + qrow[sel]
+        q_n = np.minimum(sufq[sel], bucket).astype(np.int64)
+        s_n = np.minimum(sufs[sel], bucket).astype(np.int64)
+        best = pack_ctx.run(
+            wave_handle,
+            np.where(sw, sid, qr), np.where(sw, band_s[sel], band_q[sel]),
+            np.where(sw, s_n, q_n),
+            np.where(sw, qr, sid), np.where(sw, band_q[sel], band_s[sel]),
+            np.where(sw, q_n, s_n),
+            L0=bucket, L1=bucket, score_only=score_only)
+        route['packed'] += len(sel)
+        res = postprocess_batch(best, band_q[sel], band_s[sel], sw)
+        for k in ('aln', 'mis', 'gap', 'qst', 'qed', 'sst', 'sed',
+                  'score', 'bit'):
+            out[k][sel] = res[k]
+        out['idy'][sel] = res['idy']
 
     def run_bucket(sel, bucket):
+        if pack_on:
+            fit = pack_ctx.fits[subject[sel]]
+            if fit.any():
+                run_bucket_dev(sel[fit], bucket)
+            sel = sel[~fit]
+            if len(sel) == 0:
+                return
         B = len(sel)
+        route['gathered'] += B
         # vectorized suffix gather: query suffixes come from the padded
         # q_tokens rows, subject suffixes from the flat db token array
         q_st = band_q[sel]
@@ -234,7 +285,10 @@ class IndexSource:
 
     @classmethod
     def from_build(cls, ref: SeqDB, cfg: SearchConfig,
-                   r_start: int = 0, r_end: int = -1) -> 'IndexSource':
+                   r_start: int = 0, r_end: int = -1,
+                   device: torch.device | None = None) -> 'IndexSource':
+        """Build chunk indexes on demand: on the host, or on ``device``
+        (default ``get_device()``) under ``SWIFTORTHO_INDEX=device``."""
         alphabets = cfg.resolved_alphabets()
         chunk = cfg.effective_chunk()
         D = len(ref)
@@ -242,13 +296,16 @@ class IndexSource:
         r_end = D if r_end < 0 else min(r_end, D)
         starts = list(range(r_start, r_end, chunk))
 
-        # SWIFTORTHO_INDEX=device (the JAX package's device index build)
-        # is not ported yet
+        # SWIFTORTHO_INDEX=device: seed hashing and the packed-key sort
+        # on the device, the CSR and threshold on the host (same index)
         import os as _os
         if _os.environ.get('SWIFTORTHO_INDEX', '') == 'device':
-            raise NotImplementedError(
-                'SWIFTORTHO_INDEX=device is not ported to PyTorch')
-        _build = build_index
+            from functools import partial
+
+            from ..ops.index_device import build_index_device
+            _build = partial(build_index_device, device=device)
+        else:
+            _build = build_index
 
         def get(ci):
             cst = starts[ci]
@@ -407,8 +464,13 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
     _rdesc = _encode_blob(ref.headers)
     ref_blobs = (_rid[0], _rid[1], _rdesc[0], _rdesc[1])
 
+    # device-resident token tables for the pair-packing route
+    # (ops.device_pack): built lazily, used under SWIFTORTHO_DEVICE_PACK
+    from ..ops.device_pack import DevicePackContext
+    pack_ctx = DevicePackContext(ref, device)
+
     if indexes is None:
-        source = IndexSource.from_build(ref, cfg)
+        source = IndexSource.from_build(ref, cfg, device=device)
     elif isinstance(indexes, IndexSource):
         source = indexes
     else:
@@ -444,15 +506,21 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
             masked[wi] = (toks, lens)
         return toks, lens
 
-    # candidate engine: host (vectorized numpy + native C++ chain); the
-    # JAX package's device engine (SWIFTORTHO_CANDIDATES=device) and its
-    # multi-db shard path (=multidb) are not ported yet
+    # candidate engine: host (vectorized numpy + native C++ chain) by
+    # default; SWIFTORTHO_CANDIDATES=device runs it on ``device`` (same
+    # Candidates); the multi-db shard path (=multidb) is not ported
     import os as _os
     _cand_mode = _os.environ.get('SWIFTORTHO_CANDIDATES', '')
-    if _cand_mode in ('device', 'multidb'):
+    if _cand_mode == 'multidb':
         raise NotImplementedError(
-            'SWIFTORTHO_CANDIDATES=%s is not ported to PyTorch' % _cand_mode)
-    _gen_cands = generate_candidates
+            'SWIFTORTHO_CANDIDATES=multidb is not ported to PyTorch')
+    if _cand_mode == 'device':
+        from functools import partial
+
+        from .candidates_device import generate_candidates_device
+        _gen_cands = partial(generate_candidates_device, device=device)
+    else:
+        _gen_cands = generate_candidates
 
     # Overlap: phase A runs on a producer thread while phase B consumes
     # waves as they complete (a wave is complete once the LAST chunk has
@@ -777,6 +845,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         # the prepass and the full kernel are the same DP, so the output
         # is unchanged (see use_prepass).
         prepass = use_prepass(device)
+        route = {'packed': 0, 'gathered': 0}
 
         def align_subset(mask):
             mask = mask & ~is_long & ~aligned
@@ -787,7 +856,8 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                 resA = _align_pairs(toks, lens, ref, qrow[sel_idx],
                                     subj[sel_idx], bq[sel_idx],
                                     bs[sel_idx], cfg.align_buckets, device,
-                                    score_only=True)
+                                    score_only=True, pack_ctx=pack_ctx,
+                                    route=route)
                 e = (D * lq_all[sel_idx] * ls_all[sel_idx]
                      * np.power(2.0, -resA['bit'].astype(np.float64)))
                 passing = e <= cfg.expect
@@ -800,7 +870,8 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                 sel_idx = sel2
             res = _align_pairs(toks, lens, ref, qrow[sel_idx],
                                subj[sel_idx], bq[sel_idx], bs[sel_idx],
-                               cfg.align_buckets, device)
+                               cfg.align_buckets, device, pack_ctx=pack_ctx,
+                               route=route)
             for k in res:
                 full[k][sel_idx] = res[k]
             aligned[sel_idx] = True
@@ -813,6 +884,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         long_rows = _align_long_tiles(
             toks, lens, ref, np.flatnonzero(is_long), qrow, subj, bq, bs,
             cfg.align_buckets, device)
+        route['gathered'] += sum(len(t) for t in long_rows.values())
 
         def policy_rows(sel, r):
             """Run the reference's sequential accept/stop loop; returns
@@ -1010,7 +1082,8 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                   align1_s=round(_t_align1 - _t_prep, 2),
                   policy_s=round(_t_align2 - _t_align1, 2),
                   esc_queries=esc_queries, esc_rounds=esc_rounds,
-                  rung0=rung0)
+                  rung0=rung0, packed_pairs=route['packed'],
+                  gathered_pairs=route['gathered'])
         out_rows = []
         if fast_fmt is not None:
             buf, ends, eqs = fast_fmt
@@ -1182,7 +1255,7 @@ def blastp_to_file(qry_path: str, ref_path: str, out: IO[str] | str,
         indexes = IndexSource.from_disk(db_prefix)
     elif r_start > 0 or r_end >= 0:
         indexes = IndexSource.from_build(ref, cfg, r_start=r_start,
-                                         r_end=r_end)
+                                         r_end=r_end, device=device)
     else:
         indexes = None
     fh = open(out, 'a' if append else 'w') if isinstance(out, str) else out

@@ -16,20 +16,31 @@ from swiftortho_tpu_torch import device as port_device
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(swiftortho_tpu_torch.__file__).parent
 
-# Runs with jax made unimportable: every port module imports, and the
-# find_hit, find_orth, find_cluster and run_all CLIs run on a 3-record
-# fasta on the CPU.
+# Runs with jax made unimportable: every port module imports (the device
+# index, candidate and pair-packing modules among them), and the find_hit
+# (default route, then all three device routes), find_orth, find_cluster
+# and run_all CLIs run on a 3-record fasta on the CPU.
 _NO_JAX = r'''
-import contextlib, importlib, io, pkgutil, sys
+import contextlib, importlib, io, os, pkgutil, sys
 sys.modules['jax'] = None
 import swiftortho_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for name in names:
     importlib.import_module(name)
+for name in ('ops.index_device', 'search.candidates_device', 'ops.device_pack'):
+    assert pkg.__name__ + '.' + name in names, name
 from swiftortho_tpu_torch.cli import find_cluster, find_hit, find_orth, run_all
 fsa, sc = sys.argv[1], sys.argv[2]
+routes = dict(SWIFTORTHO_INDEX='device', SWIFTORTHO_CANDIDATES='device',
+              SWIFTORTHO_DEVICE_PACK='force')
+os.environ.update(routes)
+assert find_hit.main(['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
+                      '-o', sc + '.dev']) == 0
+for k in routes:
+    del os.environ[k]
 assert find_hit.main(['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
                       '-o', sc]) == 0
+assert open(sc).read() == open(sc + '.dev').read()
 with open(sc + '.opc', 'w') as f, contextlib.redirect_stdout(f):
     assert find_orth.main(['find_orth', '-i', sc]) == 0
 with open(sc + '.clsr', 'w') as f, contextlib.redirect_stdout(f):

@@ -117,10 +117,10 @@ def test_cli_usage_errors(capsys):
     assert 'Usage' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize('env', [('SWIFTORTHO_CANDIDATES', 'device'),
-                                 ('SWIFTORTHO_CANDIDATES', 'multidb'),
-                                 ('SWIFTORTHO_INDEX', 'device')])
+@pytest.mark.parametrize('env', [('SWIFTORTHO_CANDIDATES', 'multidb')])
 def test_unported_device_paths_raise(db, env, monkeypatch):
+    # the multi-db shard path is multi-GPU work; the device index and the
+    # device candidate engine are ported (tests/test_torch_device_*.py)
     monkeypatch.setenv(*env)
     with pytest.raises(NotImplementedError):
         list(port.blastp_stream(db, db, SearchConfig(), device=CPU))
