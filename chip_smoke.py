@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Builds the port's CUDA kernel from csrc/, holds it against the plain
-PyTorch version and the C++ host oracle, times both, and drives the
-port's paths on the card, each checked against the JAX package's
-digests (pinned below, computed with the JAX package on the CPU):
+Builds the port's CUDA kernel from csrc/, holds it at every lane count
+against the plain PyTorch version and the port's C++ host oracle, times
+both at two shapes beside the kernel's bound, and drives the port's
+paths on the card, each checked against the JAX package's digests
+(pinned below, computed with the JAX package on the CPU):
 
 - the find_hit all-vs-all search at the size of the 10-genome
   configuration (41,168 sequences): the m8 table byte for byte, on the
@@ -26,7 +27,9 @@ digests (pinned below, computed with the JAX package on the CPU):
 - run_all -A mcl on the 1,034-sequence corpus, in a child process that
   runs beside the search and clustering phases: .sc .opc .clsr .pan md5s.
 
-Imports no JAX.  Each phase prints one JSON line: device, build,
+Imports no JAX and nothing of the JAX package (``swiftortho_tpu``): the
+C++ oracle, the corpus and the pan-genome code are the port's own copies.
+Each phase prints one JSON line: device, build,
 kernel_parity, kernel_time, search_parity, device_search_parity, search,
 device_components, search_device, orth, cluster_parity, cluster_scale,
 pipeline.  Any failed check exits nonzero before the
@@ -46,6 +49,7 @@ import tempfile
 import time
 
 sys.modules['jax'] = None           # this script and the port run without JAX
+sys.modules['swiftortho_tpu'] = None    # ... and without the JAX package
 
 T_START = time.time()
 SOURCE = 'swiftortho_tpu_torch/csrc/banded_sw.cu'
@@ -69,8 +73,8 @@ BIG_CLSR_MD5 = {'mcl': 'e47d40247535bcad66cd4447e4e26efc',
 # scipy 1.17.0, numpy 2.0.2).  The .pan's three curve-fit lines (the
 # ones holding '±') carry scipy.optimize.curve_fit results, which move
 # with the scipy build; PAN_NOFIT_MD5 is the digest without them, and
-# the whole .pan is also held against the JAX package's own stage-4 code
-# (swiftortho_tpu.analysis.pan_genome.pan_report) run here.
+# the whole .pan is also held against the port's copy of the JAX
+# package's stage-4 code (analysis.pan_genome.pan_report) run here.
 PIPE_MD5 = {'sc': 'b0c46bb9013002fcb19c72c5eb4b101d',
             'opc': 'd287115f4a9767e736a6ad7118eeea6d',
             'clsr': 'ed3a8913b92608542fdca4baf705d4c9'}
@@ -81,7 +85,15 @@ SCALE_FAMILIES, SCALE_CHAIN, CLIQUE = 5200, 225, 20
 SCALE_MIN_EDGES = 1_000_000
 BIG_COMPONENT_CLIQUES, BIG_COMPONENT_MB = 1024, 1024    # 20,480 nodes
 PARITY_LENGTHS = (128, 500, 1536, 4096)
-TIME_B, TIME_L, BAND = 4096, 500, 32        # the bench.py shape
+LANES = (4, 8, 16)                          # the kernel's lanes per pair
+# kernel timing: the bench.py shape, and the main path's launch size
+# (~115k pairs per launch on the 41k search, lengths up to 407)
+TIME_SHAPES = ((4096, 500), (131072, 400))
+BAND = 32
+# integer operations per band cell of the recurrence (three candidates,
+# the three-way max with its direction, the packed words of the winner,
+# the best update), the count the bound uses; see PERF.md
+INT_OPS_PER_CELL = {'full': 24, 'score_only': 10}
 
 
 def emit(phase, **fields):
@@ -115,14 +127,39 @@ def phase_device(torch):
     return dev, smi_line
 
 
+def ptxas_summary(lines):
+    """Registers, shared memory and spill bytes per banded SW kernel
+    (statistics on/off, lanes per pair) from the ptxas report lines."""
+    import re
+    out, cur = [], None
+    for ln in lines:
+        m = re.search(r'banded_sw_kernelILb([01])ELi(\d+)E', ln)
+        if 'Compiling entry' in ln and m:
+            cur = {'variant': 'full' if m.group(1) == '1' else 'score_only',
+                   'lanes': int(m.group(2))}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (('registers', r'Used (\d+) registers'),
+                             ('smem_bytes', r'(\d+) bytes smem'),
+                             ('spill_stores', r'(\d+) bytes spill stores'),
+                             ('spill_loads', r'(\d+) bytes spill loads')):
+                m = re.search(pat, ln)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from swiftortho_tpu_torch import _build
     t0 = time.time()
     _build.load_kernels()
     info = _build.build_info()
+    kernels = ptxas_summary(info['ptxas'])
+    check(len(kernels) == 6 and all('registers' in k for k in kernels),
+          'ptxas report lacks the six kernels: %s' % info['ptxas'])
     emit('build', seconds=round(time.time() - t0, 3), built=info['built'],
          nvcc_seconds=info['seconds'], command=info['command'],
-         ptxas=info['ptxas'])
+         kernels=kernels, ptxas=info['ptxas'])
 
 
 def related_batch(np, rng, B, L):
@@ -166,7 +203,7 @@ def edge_batch(np, rng):
 
 
 def phase_kernel_parity(np, torch):
-    from swiftortho_tpu.native import sw_align_batch_native
+    from swiftortho_tpu_torch.native import sw_align_batch_native
     from swiftortho_tpu_torch.ops import banded_sw as bsw
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     rng = np.random.default_rng(2024)
@@ -182,88 +219,125 @@ def phase_kernel_parity(np, torch):
         want = np.stack([oracle[k] for k in bsw.FIELDS]).astype(np.int64)
         plain = bsw.sw_align_batch(*dev)
         plain = torch.stack([plain[k] for k in bsw.FIELDS]).cpu().numpy()
-        full = cu.sw_align_batch_cuda(*dev).cpu().numpy()
-        so = cu.sw_align_batch_cuda(*dev, score_only=True).cpu().numpy()
-        torch.cuda.synchronize()
         check(np.array_equal(plain, want),
               '%s: plain version on the card != C++ oracle' % name)
-        bad = [k for i, k in enumerate(bsw.FIELDS)
-               if not np.array_equal(full[i], plain[i])]
-        check(not bad, '%s: kernel != plain in %s' % (name, bad))
-        check(np.array_equal(so[:3], plain[:3]) and not so[3:].any(),
-              '%s: score-only kernel != plain score/bi/bj or stats != 0'
-              % name)
-        max_err['full'] = max(max_err['full'], int(
-            np.abs(full.astype(np.int64) - plain).max()))
-        max_err['score_only'] = max(max_err['score_only'], int(
-            np.abs(so[:3].astype(np.int64) - plain[:3]).max()))
+        for lanes in LANES:
+            full = cu.sw_align_batch_cuda(*dev, lanes=lanes).cpu().numpy()
+            so = cu.sw_align_batch_cuda(*dev, score_only=True,
+                                        lanes=lanes).cpu().numpy()
+            torch.cuda.synchronize()
+            bad = [k for i, k in enumerate(bsw.FIELDS)
+                   if not np.array_equal(full[i], plain[i])]
+            check(not bad, '%s, %d lanes: kernel != plain in %s'
+                  % (name, lanes, bad))
+            check(np.array_equal(so[:3], plain[:3]) and not so[3:].any(),
+                  '%s, %d lanes: score-only kernel != plain score/bi/bj '
+                  'or stats != 0' % (name, lanes))
+            max_err['full'] = max(max_err['full'], int(
+                np.abs(full.astype(np.int64) - plain).max()))
+            max_err['score_only'] = max(max_err['score_only'], int(
+                np.abs(so[:3].astype(np.int64) - plain[:3]).max()))
         rows.append({'batch': name, 'B': len(batch[0]),
                      'L': [batch[0].shape[1], batch[1].shape[1]],
                      'max_score': int(want[0].max()),
                      'seconds': round(time.time() - t0, 2)})
-    check(cu.launches['full'] == len(batches)
-          and cu.launches['score_only'] == len(batches),
+    n = len(batches) * len(LANES)
+    check(cu.launches['full'] == n and cu.launches['score_only'] == n,
           'launch counters did not move: %s' % cu.launches)
-    emit('kernel_parity', batches=rows, tolerance=0, max_abs_err=max_err,
-         launches=dict(cu.launches))
+    emit('kernel_parity', batches=rows, lanes=LANES, tolerance=0,
+         max_abs_err=max_err, launches=dict(cu.launches))
     return max_err
 
 
+def card_rates(torch):
+    """The int32 ALU rate the bound uses (SMs x 64 lanes x the max SM
+    clock) and the memory rate of an H100 SXM (3.35 TB/s, the data
+    sheet)."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, 'nvidia-smi clocks.max.sm failed')
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {'sms': sms, 'max_sm_mhz': mhz,
+            'int_ops_per_s': sms * 64 * mhz * 1e6, 'bytes_per_s': 3.35e12}
+
+
+def sw_bound(rates, B, pad0, pad1, cells, var):
+    """The least time for one call: the larger of the integer operations
+    (INT_OPS_PER_CELL per band cell) over the ALU rate and the bytes (the
+    tokens and lengths read once, the (9, B) result written once) over
+    the memory rate."""
+    ops_ms = cells * INT_OPS_PER_CELL[var] / rates['int_ops_per_s'] * 1e3
+    nbytes = B * (pad0 + pad1) + 8 * B + 9 * 4 * B
+    bytes_ms = nbytes / rates['bytes_per_s'] * 1e3
+    return (max(ops_ms, bytes_ms),
+            'operations' if ops_ms >= bytes_ms else 'bytes')
+
+
 def phase_kernel_time(np, torch):
+    """Both variants at each TIME_SHAPES shape: the kernel at its default
+    lane count and at each other one, and the plain version, in turns
+    (plain, kernel, kernel, plain), with CUDA events; beside the bound."""
+    from swiftortho_tpu_torch import _build
     from swiftortho_tpu_torch.ops import banded_sw as bsw
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
-    rng = np.random.default_rng(0)
-    AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
-    B, L = TIME_B, TIME_L
-    t0 = AA[rng.integers(0, 20, (B, L + 12))]
-    t1 = AA[rng.integers(0, 20, (B, L + 12))]
-    lens = np.full(B, L, np.int32)
-    dev = [torch.from_numpy(x).cuda() for x in (t0, t1, lens, lens)]
+    rates = card_rates(torch)
+    lib = _build.load_kernels()
+    rows = []
+    for B, L in TIME_SHAPES:
+        rng = np.random.default_rng(0)
+        AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
+        t0 = AA[rng.integers(0, 20, (B, L + 12))]
+        t1 = AA[rng.integers(0, 20, (B, L + 12))]
+        lens = np.full(B, L, np.int32)
+        dev = [torch.from_numpy(x).cuda() for x in (t0, t1, lens, lens)]
+        cells = B * L * BAND
+        reps = max(3, int(2e9 // cells))
 
-    def kernel(so):
-        return lambda: cu.sw_align_batch_cuda(*dev, score_only=so)
+        def timed(fn, n):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop) / n
 
-    def plain(so):
-        return lambda: bsw.sw_align_batch(*dev, score_only=so)
-
-    def timed(fn, n):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n
-
-    fns = {('kernel', False): (kernel(False), 20),
-           ('kernel', True): (kernel(True), 20),
-           ('plain', False): (plain(False), 1),
-           ('plain', True): (plain(True), 1)}
-    for fn, _ in fns.values():          # warm-up: build, caches, clocks
-        fn()
-    torch.cuda.synchronize()
-    order = [('plain', False), ('kernel', False), ('kernel', True),
-             ('plain', True), ('plain', True), ('kernel', True),
-             ('kernel', False), ('plain', False)]
-    samples = {k: [] for k in fns}
-    for _ in range(2):
-        for k in order:
-            fn, n = fns[k]
-            samples[k].append(timed(fn, n))
-    ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
-    cells = B * L * BAND
-    res = {}
-    for so in (False, True):
-        var = 'score_only' if so else 'full'
-        res[var] = {'ms': ms[('kernel', so)], 'plain_ms': ms[('plain', so)],
-                    'cells_per_s': cells / (ms[('kernel', so)] / 1e3),
-                    'plain_cells_per_s': cells / (ms[('plain', so)] / 1e3),
-                    'samples_ms': samples[('kernel', so)],
-                    'plain_samples_ms': samples[('plain', so)]}
-    emit('kernel_time', B=B, L=L, band=BAND, cells=cells, timer='cuda events',
-         **res)
-    return res
+        row = {'B': B, 'L': L, 'band': BAND, 'cells': cells}
+        for so in (False, True):
+            var = 'score_only' if so else 'full'
+            default = lib.swt_lanes_for(B, int(so))
+            fns = {'plain': (lambda: bsw.sw_align_batch(*dev, score_only=so),
+                             1)}
+            for lanes in LANES:
+                fns[lanes] = (lambda n=lanes: cu.sw_align_batch_cuda(
+                    *dev, score_only=so, lanes=n), reps)
+            for fn, _ in fns.values():      # warm-up: build, caches, clocks
+                fn()
+            torch.cuda.synchronize()
+            order = ['plain'] + list(LANES) + list(reversed(LANES)) + ['plain']
+            samples = {k: [] for k in fns}
+            for _ in range(2):
+                for k in order:
+                    fn, n = fns[k]
+                    samples[k].append(timed(fn, n))
+            ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
+            bound_ms, bound_by = sw_bound(rates, B, L + 12, L + 12, cells,
+                                          var)
+            row[var] = {
+                'lanes': default, 'ms': ms[default], 'plain_ms': ms['plain'],
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'bound_share': bound_ms / ms[default],
+                'cells_per_s': cells / (ms[default] / 1e3),
+                'plain_cells_per_s': cells / (ms['plain'] / 1e3),
+                'ms_by_lanes': {str(n): ms[n] for n in LANES},
+                'samples_ms': {str(k): v for k, v in samples.items()}}
+        rows.append(row)
+    emit('kernel_time', shapes=rows, timer='cuda events', rates=rates,
+         int_ops_per_cell=INT_OPS_PER_CELL)
+    return rows[-1]
 
 
 @contextlib.contextmanager
@@ -336,7 +410,7 @@ def stage_split(events):
 
 
 def write_corpus_checked(tmp, name, spec, want_md5):
-    from swiftortho_tpu.corpus import make_corpus, write_corpus
+    from swiftortho_tpu_torch.corpus import make_corpus, write_corpus
     fsa = os.path.join(tmp, name)
     corpus = make_corpus(**spec)
     write_corpus(fsa, corpus)
@@ -371,7 +445,7 @@ def phase_device_search_parity(tmp, torch):
     """The device routes on SMALL on cuda: each alone, all three, a
     partial pair table (hot-set pick) and a posting cap that cuts stage 2
     into >= 4 row blocks; every .sc md5 equal to the JAX package's."""
-    from swiftortho_tpu.io_fasta import SeqDB
+    from swiftortho_tpu_torch.io_fasta import SeqDB
     from swiftortho_tpu_torch.ops.device_pack import DevicePackContext
     fsa = os.path.join(tmp, 'small.fsa')
     check(md5(fsa) == SMALL_FSA_MD5, 'small.fsa missing or changed')
@@ -461,12 +535,12 @@ def phase_device_components(tmp, np, torch):
     """On the 41k corpus: the cuda index of the first chunk against the
     host build_index, and the device engine on the first 4,096-query wave
     against the host engine (twice: cold, then warm), with stage times."""
-    from swiftortho_tpu.config import SearchConfig
-    from swiftortho_tpu.io_fasta import SeqDB
-    from swiftortho_tpu.ops.index import build_index
-    from swiftortho_tpu.search.candidates import generate_candidates
+    from swiftortho_tpu_torch.config import SearchConfig
+    from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops.index import build_index
     from swiftortho_tpu_torch.ops.index_device import build_index_device
     from swiftortho_tpu_torch.search.blastp import _mask_queries
+    from swiftortho_tpu_torch.search.candidates import generate_candidates
     from swiftortho_tpu_torch.search.candidates_device import \
         generate_candidates_device
     cuda = torch.device('cuda')
@@ -622,8 +696,8 @@ def phase_cluster_parity(tmp, opc, torch):
     """find_cluster on the 41k orthology graph: every md5 equal to the
     JAX package's; the device modes run twice (the second under the
     profiler) and must write the same bytes."""
-    from swiftortho_tpu.native import load as load_native
     from swiftortho_tpu_torch.cli.find_cluster import main
+    from swiftortho_tpu_torch.native import load as load_native
     cases = [('mcl', 'cuda', 'mcl', {}), ('mcl', 'cpu', 'mcl', {}),
              ('apc_textbook', 'cuda', 'apc', {'SWIFTORTHO_APC_FAITHFUL': '0'}),
              ('sap', 'cuda', 'sap', {}),
@@ -802,6 +876,7 @@ def phase_cluster_scale(np, torch):
 PIPELINE_CHILD = r"""
 import json, os, sys, time
 sys.modules['jax'] = None
+sys.modules['swiftortho_tpu'] = None
 os.environ['SWIFTORTHO_PLATFORM'] = 'cuda'
 from swiftortho_tpu_torch.cli.run_all import main
 from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
@@ -829,19 +904,19 @@ def start_pipeline(tmp):
 
 
 def check_pan(pan_path, clsr_path, fsa):
-    """The .pan against the JAX package's stage-4 code on the same
-    .clsr here, and against the pinned digest outside the curve-fit
+    """The .pan against the port's copy of the JAX package's stage-4 code
+    on the same .clsr here, and against the pinned digest outside the curve-fit
     lines; returns what was compared."""
     import scipy
-    from swiftortho_tpu.analysis.pan_genome import pan_report
-    from swiftortho_tpu.io_fasta import SeqDB
+    from swiftortho_tpu_torch.analysis.pan_genome import pan_report
+    from swiftortho_tpu_torch.io_fasta import SeqDB
     ref = io.StringIO()
     with open(clsr_path) as fh:
         pan_report(SeqDB.from_path(fsa), fh, ref, ts=0.05, tc=0.95)
     with open(pan_path, encoding='utf-8') as f:
         pan = f.read()
     check(pan == ref.getvalue(),
-          '.pan != pan_report of the JAX package on the same .clsr')
+          '.pan != pan_report (the port\'s copy) on the same .clsr')
     nofit = ''.join(ln for ln in pan.splitlines(True) if '±' not in ln)
     got = hashlib.md5(nofit.encode()).hexdigest()
     check(got == PAN_NOFIT_MD5, '.pan outside its curve-fit lines: md5 %s '
@@ -853,7 +928,7 @@ def check_pan(pan_path, clsr_path, fsa):
 
 
 def phase_pipeline(pipe):
-    from swiftortho_tpu.analysis.exttools import find_tool
+    from swiftortho_tpu_torch.analysis.exttools import find_tool
     proc = pipe['proc']
     t_wait = time.time()
     proc.wait(timeout=900)
@@ -924,15 +999,21 @@ def main():
                 pipe['proc'].wait()
             for f in pipe['files']:
                 f.close()
-    check(not [m for m in sys.modules if m.split('.')[0] == 'jax'
-               and sys.modules[m] is not None], 'jax was imported')
+    check(not [m for m in sys.modules
+               if m.split('.')[0] in ('jax', 'swiftortho_tpu')
+               and sys.modules[m] is not None],
+          'jax or the JAX package was imported')
     kernels = [{'name': 'banded_sw_' + var, 'route': 'cuda',
                 'source': SOURCE, 'replaces': REPLACES,
                 'launches': launches[var],
                 'launches_by_route': {'host_gather': launches[var],
                                       'device_pack': packed[var]},
                 'max_abs_err': max_err[var],
-                'ms': times[var]['ms'], 'plain_ms': times[var]['plain_ms']}
+                'ms': times[var]['ms'], 'plain_ms': times[var]['plain_ms'],
+                'bound_ms': times[var]['bound_ms'],
+                'bound_by': times[var]['bound_by'],
+                'library_ms': None,
+                'shape': [times['B'], times['L']]}
                for var in ('full', 'score_only')]
     emit('done', seconds=round(time.time() - T_START, 1))
     print(smi_line)

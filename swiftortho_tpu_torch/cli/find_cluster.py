@@ -16,11 +16,10 @@ from __future__ import annotations
 import os
 import sys
 
-from swiftortho_tpu.cli._args import parse_args
-from swiftortho_tpu.config import ClusterConfig
-
 from ..cluster.driver import find_cluster_stream
+from ..config import ClusterConfig
 from ..device import get_device
+from ._args import parse_args
 
 DEFAULTS = {'-i': '', '-d': '0.5', '-p': '-10000', '-I': '1.5',
             '-a': 'apc', '-t': '2', '-b': '25000000'}

@@ -13,11 +13,10 @@ from __future__ import annotations
 
 import sys
 
-from swiftortho_tpu.cli._args import parse_args
-from swiftortho_tpu.config import SearchConfig
-
+from ..config import SearchConfig
 from ..device import get_device
 from ..search.blastp import blastp_to_file
+from ._args import parse_args
 
 DEFAULTS = {
     '-p': 'blastp', '-v': '500', '-s': '11111111', '-i': '', '-d': '',
@@ -51,8 +50,8 @@ def main(argv=None):
         if not args['-i']:
             manual_print()
             return 1
-        from swiftortho_tpu.io_fasta import SeqDB
-        from swiftortho_tpu.ops.index import save_index
+        from ..io_fasta import SeqDB
+        from ..ops.index import save_index
 
         from ..search.blastp import IndexSource
         cfg = SearchConfig(seeds=args['-s'], alphabet=args['-r'],

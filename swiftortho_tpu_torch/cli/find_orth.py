@@ -3,9 +3,9 @@
 Usage: python -m swiftortho_tpu_torch.cli.find_orth -i out.sc [-c .5]
        [-y 0] [-n no|bsr|bal] [-s |] [-L y] > out.orth
 
-Orthology inference has no device work: this CLI runs the JAX package's
-host code (``swiftortho_tpu.orth.inference``, or ``orth.outofcore`` with
-``-L y``), which imports no jax, with the same flags and output as
+Orthology inference has no device work: this CLI runs the port's copy
+of the JAX package's host code (``orth.inference``, or ``orth.outofcore``
+with ``-L y``), with the same flags and output as
 ``swiftortho_tpu.cli.find_orth``.
 """
 
@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import sys
 
-from swiftortho_tpu.cli._args import parse_args
-from swiftortho_tpu.config import OrthConfig
+from ..config import OrthConfig
+from ._args import parse_args
 
 DEFAULTS = {'-i': '', '-c': '0.5', '-y': '0', '-n': 'no',
             '-t': 'n', '-a': '4', '-T': './tmp/', '-s': '|',
@@ -30,9 +30,9 @@ def main(argv=None):
     cfg = OrthConfig(coverage=float(args['-c']), identity=float(args['-y']),
                      norm=args['-n'], sep=args['-s'])
     if args['-L'].lower().startswith('y'):
-        from swiftortho_tpu.orth.outofcore import find_orth_stream_ooc as stream
+        from ..orth.outofcore import find_orth_stream_ooc as stream
     else:
-        from swiftortho_tpu.orth.inference import find_orth_blocks as stream
+        from ..orth.inference import find_orth_blocks as stream
     with open(args['-i']) as fh:
         for chunk in stream(fh, cfg):
             sys.stdout.write(chunk)

@@ -5,9 +5,9 @@ search -> orthology -> clustering -> pan-genome -> RBH species tree
 ``swiftortho_tpu.cli.run_all``: stage 1 is the port's search
 (``search.blastp.blastp_to_file``), stage 3 the port's clustering driver,
 both on the device named by ``SWIFTORTHO_PLATFORM`` (``cuda`` by default,
-or ``cpu``); stages 2 and 4-6 are the JAX package's host code, which
-imports no jax.  Multi-process fleets (``SWIFTORTHO_COORD``) are not
-ported.
+or ``cpu``); stages 2 and 4-6 are the port's copies of the JAX
+package's host code (``orth/``, ``analysis/``).  Multi-process fleets
+(``SWIFTORTHO_COORD``) are not ported.
 
 Usage: python -m swiftortho_tpu_torch.cli.run_all -i merged.fsa [-p operons] ...
 Outputs in <input>_results/: .sc .opc .clsr .pan .aln.trim .nwk
@@ -19,23 +19,22 @@ import os
 import sys
 from time import time
 
-from swiftortho_tpu.analysis.exttools import (tree_from_file,
-                                              trim_alignment_file)
-from swiftortho_tpu.analysis.misc import nr_collapse, nr_expand
-from swiftortho_tpu.analysis.msa import trim_alignment
-from swiftortho_tpu.analysis.operon import gene_fam_idx, operon_cluster_edges
-from swiftortho_tpu.analysis.pan_genome import pan_report
-from swiftortho_tpu.analysis.phylo import tree_from_alignment
-from swiftortho_tpu.analysis.rbh import rbh2phy
-from swiftortho_tpu.cli._args import parse_args
-from swiftortho_tpu.config import ClusterConfig, OrthConfig, SearchConfig
-from swiftortho_tpu.io_fasta import SeqDB, iter_fasta, write_fasta
-from swiftortho_tpu.orth.inference import find_orth_blocks
-from swiftortho_tpu.utils import fresh, log_event, stage
-
+from ..analysis.exttools import (tree_from_file,
+                                 trim_alignment_file)
+from ..analysis.misc import nr_collapse, nr_expand
+from ..analysis.msa import trim_alignment
+from ..analysis.operon import gene_fam_idx, operon_cluster_edges
+from ..analysis.pan_genome import pan_report
+from ..analysis.phylo import tree_from_alignment
+from ..analysis.rbh import rbh2phy
 from ..cluster.driver import find_cluster_stream
+from ..config import ClusterConfig, OrthConfig, SearchConfig
 from ..device import get_device
+from ..io_fasta import SeqDB, iter_fasta, write_fasta
+from ..orth.inference import find_orth_blocks
 from ..search.blastp import blastp_to_file
+from ..utils import fresh, log_event, stage
+from ._args import parse_args
 
 DEFAULTS = {'-i': '', '-r': '', '-p': '', '-s': '1111111', '-c': '.5',
             '-y': '50', '-n': 'no', '-l': '.05', '-u': '.95', '-a': '1',

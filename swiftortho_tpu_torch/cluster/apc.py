@@ -19,7 +19,8 @@ and runner-up are computed.
 
 ``apc_cluster_faithful`` (the driver default) and ``_apclust_ref_py`` are
 host code copied from the JAX package: the native C++ streaming emulation
-of the reference ``apclust_blk`` (``swiftortho_tpu/native/apclust.cpp``),
+of the reference ``apclust_blk`` (``native/apclust.cpp``, copied from the
+JAX package),
 with the named pure-Python fallback.
 """
 
@@ -377,11 +378,11 @@ def apc_cluster_faithful(n: int, ei: np.ndarray, ej: np.ndarray,
     k_all[2 * len(ei):] = np.arange(n)
     s_all[2 * len(ei):] = pref
     try:
-        from swiftortho_tpu.native import apclust_ref_native
+        from ..native import apclust_ref_native
         lab = apclust_ref_native(i_all, k_all, s_all, n, damp=damp,
                                  itr=itr)
     except Exception:
-        from swiftortho_tpu.utils import warn_fallback
+        from ..utils import warn_fallback
         warn_fallback('apclust_ref',
                       'native .so unavailable; pure-Python streaming AP')
         lab = _apclust_ref_py(i_all, k_all, s_all, n, damp=damp, itr=itr)

@@ -21,8 +21,7 @@ from typing import Iterable, Iterator, List
 import numpy as np
 import torch
 
-from swiftortho_tpu.config import ClusterConfig
-
+from ..config import ClusterConfig
 from .apc import apc_cluster, apc_cluster_blocked
 from .mcl import mcl_cluster
 

@@ -27,8 +27,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from swiftortho_tpu.utils import log_event
-
+from ..utils import log_event
 from .components import connected_components
 from .numerics import highest_matmul_precision
 
@@ -129,8 +128,7 @@ def mcl_cluster(n: int, ei: np.ndarray, ej: np.ndarray, w: np.ndarray,
         return []
     ckpt = None
     if ckpt_dir is not None:
-        from swiftortho_tpu.cluster.checkpoint import (ClusterCheckpoint,
-                                                       graph_signature)
+        from .checkpoint import ClusterCheckpoint, graph_signature
         sig = graph_signature(n, ei, ej, w, labels, inflation=inflation,
                               prune=prune, max_dense=max_dense)
         ckpt = ClusterCheckpoint(ckpt_dir, sig)

@@ -38,8 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from swiftortho_tpu.utils import log_event
-
+from ..utils import log_event
 from .numerics import SegmentSum, highest_matmul_precision, rank_groups
 
 _PAIR_CHUNK = 512           # max tile pairs per batched matmul

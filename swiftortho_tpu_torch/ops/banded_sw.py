@@ -27,9 +27,9 @@ import functools
 import numpy as np
 import torch
 
-from swiftortho_tpu.constants import (B62_BYTES, B62_CODES, BYTE2CODE,
-                                      GAP_EXTEND, GAP_OPEN, KA_GAPPED_LAMBDA,
-                                      KA_GAPPED_LNK, KBOUND, LN2)
+from ..constants import (B62_BYTES, B62_CODES, BYTE2CODE,
+                         GAP_EXTEND, GAP_OPEN, KA_GAPPED_LAMBDA,
+                         KA_GAPPED_LNK, KBOUND, LN2)
 
 FIELDS = ('score', 'bi', 'bj', 'sti', 'stj', 'idy', 'aln', 'mis', 'gap')
 MAX_LEN = 8191

@@ -10,10 +10,11 @@ integers (row, suffix offset, suffix length for each side) and its tokens
 are gathered on the device.  The output equals the host gather path's
 (``search.blastp._align_pairs``): both feed the same kernel.
 
-``DevicePackContext`` subclasses the JAX package's class, whose host
-logic is jax-free at import, so the routing (the row stride, the byte
-cap, the hot-set pick of ``maybe_select``, ``fits`` and ``row_of``) is
-the JAX package's own.  What this module replaces:
+The routing of ``DevicePackContext`` (the row stride, ``STRIDE_CAP``, the
+byte cap, the hot-set pick of ``maybe_select``, ``fits``, ``row_of`` and
+the table rows of ``_table``) is copied verbatim from the JAX package's
+class (:160-277), without its mesh paths (``_mesh_key``,
+``_get_packed_align``, the sharded table).  What this module replaces:
 - ``_pack``: one direct gather per side, in place of the TPU's barrel
   roll (element gathers are cheap on the card).  Query rows
   (``idx >= n_db``) come from the wave tensor and the rest from the
@@ -23,7 +24,7 @@ the JAX package's own.  What this module replaces:
   tensors, i.e. the hand-written CUDA kernel (``csrc/banded_sw.cu``, the
   port of ``banded_sw_pallas.py::sw_align_batch_pallas``) on a card and
   the plain version on the CPU;
-- no mesh (``_mesh`` is None), no power-of-two chunk counts and no
+- no mesh, no power-of-two chunk counts and no
   padding of the wave to a fixed capacity (XLA compile-cache shapes).
 
 ``SWIFTORTHO_DEVICE_PACK``: ``0`` off, ``force`` on; the default "auto"
@@ -41,10 +42,22 @@ import time
 import numpy as np
 import torch
 
-from swiftortho_tpu.ops import device_pack as _jax_pack
-
 from ..device import synchronize
 from .banded_sw import FIELDS, sw_align_auto
+
+ROW_ALIGN = 128
+# sequences longer than this stay on the host gather path (the table
+# width is shared by every row, so one huge protein would multiply the
+# whole table's footprint)
+STRIDE_CAP = 4096
+# device-table byte budget (SWIFTORTHO_PACK_CAP overrides): references
+# beyond it get a PARTIAL table, cap//stride resident rows, the rest
+# ride the host gather path per pair (``fits``).  WHICH rows are
+# resident is a hot-set selection: the search driver feeds the first
+# consumable wave's candidate subjects to ``maybe_select`` and the table
+# keeps the most-hit subjects.  Until selection happens (or when the
+# table fits whole), residency is the identity prefix [0, n_db).
+TABLE_BYTE_CAP = 2 << 30
 
 PROF = {'calls': {'full': 0, 'score_only': 0},
         'pairs': {'full': 0, 'score_only': 0},
@@ -79,22 +92,99 @@ def _pack(db_table: torch.Tensor, wave: torch.Tensor, idx: torch.Tensor,
     return torch.where(lane[None, :] < n[:, None], x, 0)
 
 
-class DevicePackContext(_jax_pack.DevicePackContext):
+class DevicePackContext:
     """Per-search device token tables and the packed align entry on
-    ``device``."""
+    ``device``.
+
+    ``_table()``: every resident reference sequence (<= STRIDE_CAP long)
+    as one zero-padded row of ``stride``; a pair's subject tokens are
+    row ``row_of[sid]``.  The query side reuses the wave's padded token
+    batch (``wave_table``), its rows addressed as ``n_db + qrow``.
+    """
 
     def __init__(self, db, device: torch.device):
-        super().__init__(db)
+        lens = (db.offsets[1:] - db.offsets[:-1]).astype(np.int64)
+        n = len(lens)
+        maxlen = int(lens.max()) if n else 1
+        stride = -(-min(maxlen, STRIDE_CAP) // ROW_ALIGN) * ROW_ALIGN
+        stride = max(stride, ROW_ALIGN)
+        self.stride = stride
+        cap = int(os.environ.get('SWIFTORTHO_PACK_CAP',
+                                 str(TABLE_BYTE_CAP)))
+        # partial table beyond the byte budget: n_db resident rows (the
+        # identity prefix until maybe_select swaps in the hot set);
+        # other subjects fall back per pair via `fits`
+        self.n_db = min(n, max(cap // stride, 0))
+        self._lens_ok = lens <= stride
+        # sel[r] = reference sequence id resident in table row r;
+        # row_of[sid] = its row, or -1 (host gather path)
+        self.sel = np.arange(self.n_db, dtype=np.int64)
+        self.row_of = np.full(n, -1, np.int64)
+        self.row_of[:self.n_db] = np.arange(self.n_db)
+        self.fits = self._lens_ok & (self.row_of >= 0)
+        self.selected = self.n_db >= n   # no point re-selecting a
+        self.ok = self.n_db > 0          # table that holds everything
+        self.n_total = n
+        self._tab_dev = None
+        self._db = db
         self.device = torch.device(device)
         self._waves: list = []       # [(host toks, device rows)]
 
-    @staticmethod
-    def _mesh():
-        return None
+    def maybe_select(self, subjects: np.ndarray) -> bool:
+        """Hot-set residency for partial tables: the search driver calls
+        this with the first consumable wave's candidate subject ids
+        (merged across every reference chunk, so the sample sees the
+        whole reference).  The n_db most-hit packable subjects become the
+        resident rows (ties broken by id); everything else host-gathers
+        per pair.  One-shot: subject frequency in all-vs-all search is
+        stationary across query waves.  No-op (returns False) once
+        selected or when the table already holds the whole reference.
+        Output-neutral: both paths are bit-identical, selection only
+        routes pairs."""
+        if self.selected or not self.ok:
+            return False
+        counts = np.bincount(
+            np.asarray(subjects, dtype=np.int64), minlength=self.n_total)
+        counts[~self._lens_ok] = -1   # overlong rows can never pack
+        order = np.lexsort((np.arange(self.n_total), -counts))
+        sel = order[:self.n_db]
+        sel = np.sort(sel[counts[sel] >= 0])
+        self.sel = sel
+        self.row_of = np.full(self.n_total, -1, np.int64)
+        self.row_of[sel] = np.arange(len(sel))
+        self.fits = self._lens_ok & (self.row_of >= 0)
+        self.selected = True
+        self._tab_dev = None          # table rebuilds on next use
+        return True
 
-    def _put(self, arr, mesh=None):
+    def _put(self, arr):
         return torch.from_numpy(np.ascontiguousarray(arr).copy()) \
             .to(self.device)
+
+    def _table(self) -> torch.Tensor:
+        if self._tab_dev is None:
+            db = self._db
+            sel = self.sel
+            # table height is ALWAYS n_db (query rows are addressed as
+            # n_db + qrow); rows past len(sel) stay zero and are never
+            # referenced (row_of == -1)
+            tab = np.zeros((self.n_db, self.stride), np.uint8)
+            if len(sel):
+                starts = db.offsets[sel].astype(np.int64)
+                cl = np.minimum((db.offsets[sel + 1] - starts)
+                                .astype(np.int64), self.stride)
+                mask = np.zeros((self.n_db, self.stride), bool)
+                mask[:len(sel)] = (
+                    np.arange(self.stride, dtype=np.int64)[None, :]
+                    < cl[:, None])
+                # vectorized ragged gather: row r reads
+                # tokens[starts[r] : starts[r] + cl[r]]
+                within = (np.arange(int(cl.sum()), dtype=np.int64)
+                          - np.repeat(np.concatenate(
+                              [[0], np.cumsum(cl)[:-1]]), cl))
+                tab[mask] = db.tokens[np.repeat(starts, cl) + within]
+            self._tab_dev = self._put(tab)
+        return self._tab_dev
 
     def wave_table(self, toks: np.ndarray):
         """Upload a wave's padded query rows; returns (device rows,

@@ -38,15 +38,14 @@ from typing import List
 import numpy as np
 import torch
 
-from swiftortho_tpu.constants import reduced_alphabet_table
-from swiftortho_tpu.io_fasta import SeqDB
-from swiftortho_tpu.ops.index import SeedIndex, build_index, ref_mu_sd
-from swiftortho_tpu.ops.seeds import (FNV_BASIS, FNV_PRIME, min_pattern_len,
-                                      parse_patterns)
-from swiftortho_tpu.utils import log_event
-
+from ..constants import reduced_alphabet_table
 from ..device import StageClock, get_device
+from ..io_fasta import SeqDB
+from ..utils import log_event
+from .index import SeedIndex, build_index, ref_mu_sd
 from .scan import cummax_1d
+from .seeds import (FNV_BASIS, FNV_PRIME, min_pattern_len,
+                    parse_patterns)
 
 _XL, _XU = ord('x'), ord('X')
 FNV_MASK = 0xFFFFFFFF

@@ -3,16 +3,16 @@
 Port of ``swiftortho_tpu/ops/seg.py::seg_batch_vec`` (contract: reference
 lib/fsearch.py:2854-2946, quirks in that module's docstring).  Masking is
 host work: it calls the threaded C++ port of the sequential oracle
-(``swiftortho_tpu/native/seg.cpp``), bit for bit ``seg_string``.  The JAX
-module cannot be imported here (it imports jax at module level).
+(the port's copy of ``swiftortho_tpu/native/seg.cpp``), bit for bit
+``seg_string``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from swiftortho_tpu.constants import SEG_MIN_ENT, SEG_WINDOW
-from swiftortho_tpu.native import seg_batch_native
+from ..constants import SEG_MIN_ENT, SEG_WINDOW
+from ..native import seg_batch_native
 
 
 def seg_batch_vec(tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:

@@ -55,22 +55,21 @@ from typing import IO, Iterator, List
 import numpy as np
 import torch
 
-from swiftortho_tpu.config import SearchConfig
-from swiftortho_tpu.constants import LONG_SEQ_TILE
-from swiftortho_tpu.io_fasta import SeqDB
-from swiftortho_tpu.ops.index import build_index
-from swiftortho_tpu.ops.stats import f2s
-from swiftortho_tpu.search.candidates import Candidates, generate_candidates
-
+from ..config import SearchConfig
+from ..constants import LONG_SEQ_TILE
 from ..device import get_device
+from ..io_fasta import SeqDB
 from ..ops.banded_sw import FIELDS, postprocess_batch, sw_align_auto
+from ..ops.index import build_index
 from ..ops.seg import seg_batch_vec
+from ..ops.stats import f2s
+from .candidates import Candidates, generate_candidates
 
 
 def _fmt_idy(idy: float) -> str:
     # py2 12-digit float str, then truncate to 2 decimals (the reference's
     # runtime printed floats with py2 semantics; see ops.stats.py2_float_str)
-    from swiftortho_tpu.ops.stats import py2_float_str
+    from ..ops.stats import py2_float_str
     s = py2_float_str(idy)
     end = max(0, s.find('.') + 3)
     return s[:end]
@@ -181,7 +180,7 @@ def _align_pairs(q_tokens, q_lengths, db: SeqDB, qrow, subject,
         t0 = np.empty((B, bucket), np.uint8)
         t1 = np.empty((B, bucket), np.uint8)
 
-        from swiftortho_tpu.native import gather_rows
+        from ..native import gather_rows
         qr = qrow[sel]
         q_flat_st = qr * L + q_st          # q_tokens rows, flattened
         all_rows = np.arange(B, dtype=np.int64)
@@ -319,7 +318,7 @@ class IndexSource:
     def from_disk(cls, prefix: str) -> 'IndexSource':
         import glob
 
-        from swiftortho_tpu.ops.index import load_index
+        from ..ops.index import load_index
 
         paths = sorted(glob.glob(prefix + '.*.npz'),
                        key=lambda p: int(p.rsplit('.', 2)[-2]))
@@ -329,7 +328,7 @@ class IndexSource:
         # reference on-disk layout (.idx/.soas/.bin + params footer,
         # fsearch.py:2298-2349): chunked `name.%d.*` as written by its
         # makedb (:2283-2295), or a single unnumbered `name.*`
-        from swiftortho_tpu.ops.index import load_index_ref
+        from ..ops.index import load_index_ref
         rpaths = sorted(glob.glob(prefix + '.*.bin'),
                         key=lambda p: int(p.rsplit('.', 2)[-2]))
         if not rpaths and glob.glob(prefix + '.bin'):
@@ -351,7 +350,7 @@ def make_db(ref: SeqDB, cfg: SearchConfig, out_prefix: str = '',
     role with the -L/-U range (find_hit.py:282-283, fsearch.py
     Fasta.makedb :2283-2295).  Materializes every chunk; prefer
     ``IndexSource.from_build`` for bounded-memory streaming."""
-    from swiftortho_tpu.ops.index import save_index
+    from ..ops.index import save_index
 
     src = IndexSource.from_build(ref, cfg, r_start, r_end)
     indexes = []
@@ -459,7 +458,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
 
     # string-column blobs for the native row formatter (encoded once
     # per search; encode_blob is a pure-numpy helper)
-    from swiftortho_tpu.native import encode_blob as _encode_blob
+    from ..native import encode_blob as _encode_blob
     _rid = _encode_blob(ref.ids)
     _rdesc = _encode_blob(ref.headers)
     ref_blobs = (_rid[0], _rid[1], _rdesc[0], _rdesc[1])
@@ -478,7 +477,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
 
     import time as _time
 
-    from swiftortho_tpu.utils import log_event
+    from ..utils import log_event
 
     waves = [(wst, min(wst + cfg.query_batch, q_end))
              for wst in range(q_start, q_end, cfg.query_batch)]
@@ -574,7 +573,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
             # host engine consumes it, and only when >1 chunk makes the
             # reuse worthwhile (candidates.WaveSeeds; identical output,
             # guarded by matches(index) per chunk)
-            from swiftortho_tpu.search.candidates import make_wave_seeds
+            from .candidates import make_wave_seeds
             use_ws = (_gen_cands is generate_candidates and n_chunks > 1)
             wave_seeds: dict = {}
 
@@ -609,7 +608,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                                       ix.mink], dtype=np.int64))
                         cache_paths[ci] = path
                     return ix
-                from swiftortho_tpu.ops.index import load_index
+                from ..ops.index import load_index
                 return load_index(cache_paths[ci])
 
             # One-ahead index prefetch: while the main producer sweeps
@@ -775,7 +774,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         # 2^26 — else lexsort).
         ranked = False
         try:
-            from swiftortho_tpu.native import rank_cut_native
+            from ..native import rank_cut_native
             qrow, subj, csc, bq, bs, rank, nhits_of = rank_cut_native(
                 qrow, subj, csc, bq, bs, wend - wst, vmax)
             ranked = True
@@ -994,7 +993,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         # order on ties, like list.sort), top-v cut, one threaded call.
         fast_fmt = None
         try:
-            from swiftortho_tpu.native import encode_blob, format_rows_native
+            from ..native import encode_blob, format_rows_native
             eb = full['bit'][emit_idx]
             eq = qrow[emit_idx]
             if (len(eb) == 0 or (eb.min() >= 0 and eb.max() < (1 << 40)
@@ -1195,7 +1194,7 @@ def _align_long_tiles(q_tokens, q_lengths, ref: SeqDB, long_idx,
         B = len(sel)
         t0 = np.empty((B, bucket), np.uint8)
         t1 = np.empty((B, bucket), np.uint8)
-        from swiftortho_tpu.native import gather_rows
+        from ..native import gather_rows
         q_flat_st = t_qrow[sel] * L + t_i0[sel]
         s_st = s_off0[sel] + t_j0[sel]
         q_n = np.minimum(l0q[sel], bucket).astype(np.int64)

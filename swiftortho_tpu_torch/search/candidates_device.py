@@ -54,16 +54,15 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from swiftortho_tpu.constants import B62_BYTES, MIN_CHAIN_SCORE, XDROP
-from swiftortho_tpu.io_fasta import SeqDB
-from swiftortho_tpu.ops.index import SeedIndex
-from swiftortho_tpu.search.candidates import (Candidates, _finish_candidates,
-                                              generate_candidates)
-from swiftortho_tpu.utils import log_event
-
+from ..constants import B62_BYTES, MIN_CHAIN_SCORE, XDROP
 from ..device import StageClock, get_device
+from ..io_fasta import SeqDB
+from ..ops.index import SeedIndex
 from ..ops.index_device import BASIS, fnv_step, shifted, streams, tables
 from ..ops.scan import cummax_1d, cumsum_1d
+from ..utils import log_event
+from .candidates import (Candidates, _finish_candidates,
+                         generate_candidates)
 
 _XL, _XU = ord('x'), ord('X')
 NEG_STEP = -(1 << 19)       # invalid-step sentinel: int32 sums stay in range

@@ -198,6 +198,15 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     assert tcu.launches == before
 
 
+def test_kernel_wrapper_rejects_bad_lane_counts():
+    before = dict(tcu.launches)
+    for lanes in (0, 2, 5, 32):
+        with pytest.raises(ValueError, match='lanes'):
+            tcu.sw_align_batch_cuda(*_torch(_case('tiny_empty', B=4)),
+                                    lanes=lanes)
+    assert tcu.launches == before
+
+
 @pytest.mark.parametrize('bad', ['dtype', 'width0', 'width_max', 'rows',
                                  'len_shape'])
 def test_batch_checks(bad):
@@ -245,8 +254,11 @@ def test_kernel_matches_plain(cuda_device, name, score_only):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('L', [500, 1536])
-def test_kernel_long_mixed_batch(cuda_device, L):
+@pytest.mark.parametrize('lanes', [None, 4, 8, 16])
+@pytest.mark.parametrize('L', [500, 1536, 501])
+def test_kernel_long_mixed_batch(cuda_device, L, lanes):
+    """Every lane count; a width that is no multiple of 4 stages its rows
+    by plain loads instead of cp.async."""
     rng = np.random.default_rng(L)
     B = 300
     t0 = AA[rng.integers(0, 20, (B, L))]
@@ -254,9 +266,15 @@ def test_kernel_long_mixed_batch(cuda_device, L):
     t1[B // 3:] = AA[rng.integers(0, 20, (B - B // 3, L))]
     l0 = rng.integers(L // 2, L + 1, B).astype(np.int32)
     l1 = rng.integers(L // 2, L + 1, B).astype(np.int32)
-    got = tcu.sw_align_batch_cuda(*_torch((t0, t1, l0, l1), cuda_device))
-    got = dict(zip(FIELDS, got.cpu().numpy().astype(np.int64)))
-    _assert_same(got, _np(sw_align_batch_native(t0, t1, l0, l1)))
+    want = _np(sw_align_batch_native(t0, t1, l0, l1))
+    for so in (False, True):
+        got = tcu.sw_align_batch_cuda(*_torch((t0, t1, l0, l1), cuda_device),
+                                      score_only=so, lanes=lanes)
+        got = dict(zip(FIELDS, got.cpu().numpy().astype(np.int64)))
+        if so:
+            want = dict(want, **{k: np.zeros_like(want[k])
+                                 for k in FIELDS[3:]})
+        _assert_same(got, want)
 
 
 @pytest.mark.cuda

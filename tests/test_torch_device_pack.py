@@ -37,8 +37,9 @@ def jax_rows(corpus):
 
 
 def _search(corpus, cfg=None, waves=None):
-    """The port's rows on the CPU; ``waves`` collects search_wave events."""
-    import swiftortho_tpu.utils as U
+    """The port's rows on the CPU; ``waves`` collects search_wave events
+    (``search.blastp`` logs through the port's own ``utils``)."""
+    import swiftortho_tpu_torch.utils as U
     orig = U.log_event
 
     def spy(stage, **kw):
@@ -110,7 +111,7 @@ def test_mixed_fit_split(corpus, jax_rows, monkeypatch):
     """Subjects longer than the table stride take the host gather inside
     the same bucket; the merged rows are unchanged."""
     monkeypatch.setenv('SWIFTORTHO_DEVICE_PACK', 'force')
-    monkeypatch.setattr(jax_pack, 'STRIDE_CAP', 128)
+    monkeypatch.setattr(port, 'STRIDE_CAP', 128)
     assert int((corpus.lengths > 128).sum()) > 0
     waves = []
     assert _search(corpus, waves=waves) == jax_rows
@@ -200,6 +201,7 @@ def test_hot_set_selection_matches_jax(corpus, monkeypatch):
 
 
 def test_overlong_rows_never_selected(corpus, monkeypatch):
+    monkeypatch.setattr(port, 'STRIDE_CAP', 128)
     monkeypatch.setattr(jax_pack, 'STRIDE_CAP', 128)
     ctx, jctx = _partial(corpus, monkeypatch, 6)
     long_id = int(np.argmax(corpus.lengths))

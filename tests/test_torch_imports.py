@@ -1,5 +1,6 @@
-"""The port imports torch and never jax, and never picks the CPU on its
-own: ``SWIFTORTHO_PLATFORM=cuda`` (the default) without a card raises."""
+"""The port imports torch, never jax and nothing of the JAX package
+(``swiftortho_tpu``), and never picks the CPU on its own:
+``SWIFTORTHO_PLATFORM=cuda`` (the default) without a card raises."""
 
 import ast
 import os
@@ -16,15 +17,20 @@ from swiftortho_tpu_torch import device as port_device
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(swiftortho_tpu_torch.__file__).parent
 
-# Runs with jax made unimportable: every port module imports (the device
+# Runs with jax and the JAX package made unimportable: every port module
+# imports (the device
 # index, candidate and pair-packing modules among them), and the find_hit
 # (default route, then all three device routes), find_orth, find_cluster
 # and run_all CLIs run on a 3-record fasta on the CPU.
 _NO_JAX = r'''
 import contextlib, importlib, io, os, pkgutil, sys
 sys.modules['jax'] = None
+sys.modules['swiftortho_tpu'] = None
 import swiftortho_tpu_torch as pkg
-names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+# modules only: the built native library (native/libswnative.so) is skipped
+mods = pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')
+names = [m.name for m in mods if m.ispkg or os.path.exists(os.path.join(
+    m.module_finder.path, m.name.rsplit('.', 1)[1] + '.py'))]
 for name in names:
     importlib.import_module(name)
 for name in ('ops.index_device', 'search.candidates_device', 'ops.device_pack'):
@@ -48,7 +54,8 @@ with open(sc + '.clsr', 'w') as f, contextlib.redirect_stdout(f):
                               '-a', 'mcl']) == 0
 with contextlib.redirect_stdout(io.StringIO()):
     assert run_all.main(['run_all', '-i', fsa, '-A', 'mcl']) == 0
-assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+assert not [m for m in sys.modules
+            if m.split('.')[0] in ('jax', 'swiftortho_tpu')
             if sys.modules[m] is not None]
 print(len(names))
 '''
@@ -74,6 +81,38 @@ def test_port_runs_without_jax(tmp_path):
     res = tmp_path / 'three.fsa_results'
     for ext in ('sc', 'opc', 'clsr', 'pan'):
         assert (res / ('three.fsa.' + ext)).stat().st_size > 0
+
+
+def _imported_modules(path):
+    """Every module an ``import`` statement in ``path`` names, at module
+    level or inside a function; relative imports resolved."""
+    rel = path.relative_to(REPO).with_suffix('')
+    parts = list(rel.parts)
+    if parts[-1] == '__init__':
+        parts = parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = parts[:len(parts) - node.level + 1] \
+                    if path.name == '__init__.py' else \
+                    parts[:len(parts) - node.level]
+                yield '.'.join(base + ([node.module] if node.module else []))
+            else:
+                yield node.module or ''
+
+
+def test_no_jax_package_import_in_sources():
+    """No file of the port and not chip_smoke.py imports swiftortho_tpu."""
+    paths = sorted(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py']
+    assert len(paths) > 50
+    seen = set()
+    for path in paths:
+        for m in _imported_modules(path):
+            seen.add(m.split('.')[0])
+            assert m.split('.')[0] != 'swiftortho_tpu', (path, m)
+    assert {'swiftortho_tpu_torch', 'torch', 'numpy'} <= seen
 
 
 def test_no_jax_import_in_sources():
