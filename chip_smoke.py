@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (swiftortho_tpu_torch) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --baseline old.cu   # also time an older source
 
-Builds the port's CUDA kernel from csrc/, holds it at every lane count
-against the plain PyTorch version and the port's C++ host oracle, times
-both at two shapes beside the kernel's bound, and drives the port's
-paths on the card, each checked against the JAX package's digests
-(pinned below, computed with the JAX package on the CPU):
+Builds the port's CUDA kernels from csrc/, holds each (full statistics;
+score-only at 4 and at 8 lanes a pair) against the plain PyTorch version
+and the port's C++ host oracle, times both variants at two shapes beside
+the kernel's bound, and drives the port's paths on the card, each
+checked against the JAX package's digests (pinned below, computed with
+the JAX package on the CPU):
 
 - the find_hit all-vs-all search at the size of the 10-genome
   configuration (41,168 sequences): the m8 table byte for byte, on the
@@ -26,6 +28,12 @@ paths on the card, each checked against the JAX package's digests
   engine, twice, against the scipy oracle;
 - run_all -A mcl on the 1,034-sequence corpus, in a child process that
   runs beside the search and clustering phases: .sc .opc .clsr .pan md5s.
+
+``--baseline`` names an earlier source of ``csrc/banded_sw.cu`` (its C
+entry ``swt_banded_sw`` must take today's arguments, as PR 1's does,
+e.g. ``git show <commit>:swiftortho_tpu_torch/csrc/banded_sw.cu``):
+``kernel_time`` builds it alone, requires its nine fields to equal the
+kernel's at every timed shape, and times it in the same turns.
 
 Imports no JAX and nothing of the JAX package (``swiftortho_tpu``): the
 C++ oracle, the corpus and the pan-genome code are the port's own copies.
@@ -84,15 +92,18 @@ PIPE_NWK_MD5_NO_TOOLS = 'dededa9ff50bd04ac09bfada7d194d5f'
 SCALE_FAMILIES, SCALE_CHAIN, CLIQUE = 5200, 225, 20
 SCALE_MIN_EDGES = 1_000_000
 BIG_COMPONENT_CLIQUES, BIG_COMPONENT_MB = 1024, 1024    # 20,480 nodes
+# kernel parity: B = 1000 pairs at each length (score-only runs at 8
+# lanes a pair there), and one batch of 8,192 (score-only at 4 lanes)
 PARITY_LENGTHS = (128, 500, 1536, 4096)
-LANES = (4, 8, 16)                          # the kernel's lanes per pair
-# kernel timing: the bench.py shape, and the main path's launch size
-# (~115k pairs per launch on the 41k search, lengths up to 407)
-TIME_SHAPES = ((4096, 500), (131072, 400))
+PARITY_WIDE = (8192, 400)
+# kernel timing, (B, L) per variant: the bench.py shape, then the 41k
+# search's launch size (pairs over launches: 427,044 / 33 full,
+# 7,141,009 / 33 score-only; lengths up to 407)
+TIME_SHAPES = {'full': ((4096, 500), (12941, 400)),
+               'score_only': ((4096, 500), (216394, 400))}
 BAND = 32
-# integer operations per band cell of the recurrence (three candidates,
-# the three-way max with its direction, the packed words of the winner,
-# the best update), the count the bound uses; see PERF.md
+# the least integer operations per band cell of the recurrence, the
+# count the bound uses; PERF.md lists them term by term
 INT_OPS_PER_CELL = {'full': 24, 'score_only': 10}
 
 
@@ -149,14 +160,18 @@ def ptxas_summary(lines):
     return out
 
 
+KERNELS = [('full', 4), ('score_only', 4), ('score_only', 8)]
+
+
 def phase_build():
     from swiftortho_tpu_torch import _build
     t0 = time.time()
     _build.load_kernels()
     info = _build.build_info()
     kernels = ptxas_summary(info['ptxas'])
-    check(len(kernels) == 6 and all('registers' in k for k in kernels),
-          'ptxas report lacks the six kernels: %s' % info['ptxas'])
+    check(sorted((k['variant'], k['lanes']) for k in kernels)
+          == sorted(KERNELS) and all('registers' in k for k in kernels),
+          'ptxas report lacks the kernels %s: %s' % (KERNELS, info['ptxas']))
     emit('build', seconds=round(time.time() - t0, 3), built=info['built'],
          nvcc_seconds=info['seconds'], command=info['command'],
          kernels=kernels, ptxas=info['ptxas'])
@@ -203,12 +218,16 @@ def edge_batch(np, rng):
 
 
 def phase_kernel_parity(np, torch):
+    from swiftortho_tpu_torch import _build
     from swiftortho_tpu_torch.native import sw_align_batch_native
     from swiftortho_tpu_torch.ops import banded_sw as bsw
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     rng = np.random.default_rng(2024)
     batches = [('L%d' % L, related_batch(np, rng, 1000, L))
                for L in PARITY_LENGTHS] + [('edge', edge_batch(np, rng))]
+    batches.append(('B%d_L%d' % PARITY_WIDE,
+                    related_batch(np, rng, *PARITY_WIDE)))
+    lib = _build.load_kernels()
     max_err = {'full': 0, 'score_only': 0}
     cu.reset_counters()
     rows = []
@@ -221,31 +240,34 @@ def phase_kernel_parity(np, torch):
         plain = torch.stack([plain[k] for k in bsw.FIELDS]).cpu().numpy()
         check(np.array_equal(plain, want),
               '%s: plain version on the card != C++ oracle' % name)
-        for lanes in LANES:
-            full = cu.sw_align_batch_cuda(*dev, lanes=lanes).cpu().numpy()
-            so = cu.sw_align_batch_cuda(*dev, score_only=True,
-                                        lanes=lanes).cpu().numpy()
-            torch.cuda.synchronize()
-            bad = [k for i, k in enumerate(bsw.FIELDS)
-                   if not np.array_equal(full[i], plain[i])]
-            check(not bad, '%s, %d lanes: kernel != plain in %s'
-                  % (name, lanes, bad))
-            check(np.array_equal(so[:3], plain[:3]) and not so[3:].any(),
-                  '%s, %d lanes: score-only kernel != plain score/bi/bj '
-                  'or stats != 0' % (name, lanes))
-            max_err['full'] = max(max_err['full'], int(
-                np.abs(full.astype(np.int64) - plain).max()))
-            max_err['score_only'] = max(max_err['score_only'], int(
-                np.abs(so[:3].astype(np.int64) - plain[:3]).max()))
-        rows.append({'batch': name, 'B': len(batch[0]),
+        full = cu.sw_align_batch_cuda(*dev).cpu().numpy()
+        so = cu.sw_align_batch_cuda(*dev, score_only=True).cpu().numpy()
+        torch.cuda.synchronize()
+        bad = [k for i, k in enumerate(bsw.FIELDS)
+               if not np.array_equal(full[i], plain[i])]
+        check(not bad, '%s: kernel != plain in %s' % (name, bad))
+        check(np.array_equal(so[:3], plain[:3]) and not so[3:].any(),
+              '%s: score-only kernel != plain score/bi/bj or stats != 0'
+              % name)
+        max_err['full'] = max(max_err['full'], int(
+            np.abs(full.astype(np.int64) - plain).max()))
+        max_err['score_only'] = max(max_err['score_only'], int(
+            np.abs(so[:3].astype(np.int64) - plain[:3]).max()))
+        B = len(batch[0])
+        rows.append({'batch': name, 'B': B,
                      'L': [batch[0].shape[1], batch[1].shape[1]],
+                     'lanes': {'full': lib.swt_lanes_for(B, 0),
+                               'score_only': lib.swt_lanes_for(B, 1)},
                      'max_score': int(want[0].max()),
                      'seconds': round(time.time() - t0, 2)})
-    n = len(batches) * len(LANES)
+    n = len(batches)
     check(cu.launches['full'] == n and cu.launches['score_only'] == n,
           'launch counters did not move: %s' % cu.launches)
-    emit('kernel_parity', batches=rows, lanes=LANES, tolerance=0,
-         max_abs_err=max_err, launches=dict(cu.launches))
+    ran = {(v, r['lanes'][v]) for r in rows for v in ('full', 'score_only')}
+    check(ran == set(KERNELS), 'parity ran the kernels %s, not %s'
+          % (sorted(ran), KERNELS))
+    emit('kernel_parity', batches=rows, tolerance=0, max_abs_err=max_err,
+         launches=dict(cu.launches))
     return max_err
 
 
@@ -275,49 +297,97 @@ def sw_bound(rates, B, pad0, pad1, cells, var):
             'operations' if ops_ms >= bytes_ms else 'bytes')
 
 
-def phase_kernel_time(np, torch):
-    """Both variants at each TIME_SHAPES shape: the kernel at its default
-    lane count and at each other one, and the plain version, in turns
-    (plain, kernel, kernel, plain), with CUDA events; beside the bound."""
+def build_baseline(path):
+    """nvcc an earlier source of the kernel alone, with the port's flags,
+    into the build directory; returns (its library, the ptxas lines)."""
+    import ctypes
     from swiftortho_tpu_torch import _build
+    with open(path, 'rb') as f:
+        src = f.read()
+    so = os.path.join(_build.BUILD_DIR, 'libswt_baseline.%s.so'
+                      % hashlib.sha256(src).hexdigest()[:16])
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                        os.path.abspath(path), '-o', so],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, 'nvcc failed on %s:\n%s'
+          % (path, r.stderr[-4000:]))
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.swt_banded_sw.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ci, ci,
+                                  ci, vp, vp]
+    lib.swt_banded_sw.restype = ci
+    return lib, _build._ptxas_lines(r.stdout + r.stderr)
+
+
+def phase_kernel_time(np, torch, baseline=None):
+    """Each variant at its TIME_SHAPES: the kernel, the plain version and,
+    with ``baseline``, an earlier source of the kernel, in turns (plain,
+    kernel, baseline, baseline, kernel, plain, twice), with CUDA events;
+    beside the bound.  The first calls (warm-up) must agree field for
+    field.  Returns each variant's row at its main-path shape."""
+    from swiftortho_tpu_torch import _build
+    from swiftortho_tpu_torch.constants import GAP_EXTEND, GAP_OPEN
     from swiftortho_tpu_torch.ops import banded_sw as bsw
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     rates = card_rates(torch)
     lib = _build.load_kernels()
-    rows = []
-    for B, L in TIME_SHAPES:
-        rng = np.random.default_rng(0)
-        AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
-        t0 = AA[rng.integers(0, 20, (B, L + 12))]
-        t1 = AA[rng.integers(0, 20, (B, L + 12))]
-        lens = np.full(B, L, np.int32)
-        dev = [torch.from_numpy(x).cuda() for x in (t0, t1, lens, lens)]
-        cells = B * L * BAND
-        reps = max(3, int(2e9 // cells))
+    base, base_ptxas = build_baseline(baseline) if baseline else (None, None)
+    table = bsw.scoring_tables(torch.device('cuda'))['codes']
 
-        def timed(fn, n):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(n):
-                fn()
-            stop.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(stop) / n
+    def run_base(dev, so):
+        B, pad0 = dev[0].shape
+        out = torch.empty((len(bsw.FIELDS), B), dtype=torch.int32,
+                          device='cuda')
+        rc = base.swt_banded_sw(*(x.data_ptr() for x in dev), B, pad0,
+                                dev[1].shape[1], table.data_ptr(), GAP_OPEN,
+                                GAP_EXTEND, int(so), out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, 'baseline launch failed: CUDA error %d' % rc)
+        return out
 
-        row = {'B': B, 'L': L, 'band': BAND, 'cells': cells}
-        for so in (False, True):
-            var = 'score_only' if so else 'full'
-            default = lib.swt_lanes_for(B, int(so))
+    def timed(fn, n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n
+
+    rows, main = [], {}
+    for var, shapes in TIME_SHAPES.items():
+        so = var == 'score_only'
+        for B, L in shapes:
+            rng = np.random.default_rng(0)
+            AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
+            t0 = AA[rng.integers(0, 20, (B, L + 12))]
+            t1 = AA[rng.integers(0, 20, (B, L + 12))]
+            lens = np.full(B, L, np.int32)
+            dev = [torch.from_numpy(x).cuda() for x in (t0, t1, lens, lens)]
+            cells = B * L * BAND
+            reps = max(3, int(2e9 // cells))
             fns = {'plain': (lambda: bsw.sw_align_batch(*dev, score_only=so),
-                             1)}
-            for lanes in LANES:
-                fns[lanes] = (lambda n=lanes: cu.sw_align_batch_cuda(
-                    *dev, score_only=so, lanes=n), reps)
-            for fn, _ in fns.values():      # warm-up: build, caches, clocks
-                fn()
+                             1),
+                   'kernel': (lambda: cu.sw_align_batch_cuda(
+                       *dev, score_only=so), reps)}
+            if base is not None:
+                fns['baseline'] = (lambda: run_base(dev, so), reps)
+            # warm-up (build, caches, clocks), and the outputs compared
+            plain = fns['plain'][0]()
+            plain = torch.stack([plain[k] for k in bsw.FIELDS]).to(
+                torch.int32)
+            got = {k: fn() for k, (fn, _) in fns.items() if k != 'plain'}
             torch.cuda.synchronize()
-            order = ['plain'] + list(LANES) + list(reversed(LANES)) + ['plain']
+            nf = 3 if so else len(bsw.FIELDS)
+            for k, out in got.items():
+                check(torch.equal(out[:nf], plain[:nf])
+                      and not out[nf:].any(),
+                      '%s %dx%d: %s != plain' % (var, B, L, k))
+            order = ['plain', 'kernel', 'baseline', 'baseline', 'kernel',
+                     'plain']
+            order = [k for k in order if k in fns]
             samples = {k: [] for k in fns}
             for _ in range(2):
                 for k in order:
@@ -326,18 +396,24 @@ def phase_kernel_time(np, torch):
             ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
             bound_ms, bound_by = sw_bound(rates, B, L + 12, L + 12, cells,
                                           var)
-            row[var] = {
-                'lanes': default, 'ms': ms[default], 'plain_ms': ms['plain'],
-                'bound_ms': bound_ms, 'bound_by': bound_by,
-                'bound_share': bound_ms / ms[default],
-                'cells_per_s': cells / (ms[default] / 1e3),
-                'plain_cells_per_s': cells / (ms['plain'] / 1e3),
-                'ms_by_lanes': {str(n): ms[n] for n in LANES},
-                'samples_ms': {str(k): v for k, v in samples.items()}}
-        rows.append(row)
+            row = {'variant': var, 'B': B, 'L': L, 'band': BAND,
+                   'cells': cells, 'lanes': lib.swt_lanes_for(B, int(so)),
+                   'ms': ms['kernel'], 'plain_ms': ms['plain'],
+                   'bound_ms': bound_ms, 'bound_by': bound_by,
+                   'bound_share': bound_ms / ms['kernel'],
+                   'cells_per_s': cells / (ms['kernel'] / 1e3),
+                   'plain_cells_per_s': cells / (ms['plain'] / 1e3),
+                   'samples_ms': samples}
+            if base is not None:
+                row['baseline_ms'] = ms['baseline']
+                row['baseline_cells_per_s'] = cells / (ms['baseline'] / 1e3)
+            rows.append(row)
+            main[var] = row                 # the last shape: the main path's
+    extra = {'baseline': baseline, 'baseline_ptxas': base_ptxas} \
+        if base is not None else {}
     emit('kernel_time', shapes=rows, timer='cuda events', rates=rates,
-         int_ops_per_cell=INT_OPS_PER_CELL)
-    return rows[-1]
+         int_ops_per_cell=INT_OPS_PER_CELL, **extra)
+    return main
 
 
 @contextlib.contextmanager
@@ -972,14 +1048,19 @@ def phase_pipeline(pipe):
                     'cluster_parity, cluster_scale')
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--baseline', metavar='CU',
+                    help='an earlier csrc/banded_sw.cu to time beside it')
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
 
     dev, smi_line = phase_device(torch)
     phase_build()
     max_err = phase_kernel_parity(np, torch)
-    times = phase_kernel_time(np, torch)
+    times = phase_kernel_time(np, torch, args.baseline)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         pipe = start_pipeline(tmp)
         try:
@@ -1013,7 +1094,7 @@ def main():
                 'bound_ms': times[var]['bound_ms'],
                 'bound_by': times[var]['bound_by'],
                 'library_ms': None,
-                'shape': [times['B'], times['L']]}
+                'shape': [times[var]['B'], times[var]['L']]}
                for var in ('full', 'score_only')]
     emit('done', seconds=round(time.time() - T_START, 1))
     print(smi_line)

@@ -98,9 +98,6 @@ def load_kernels() -> ctypes.CDLL:
         lib.swt_banded_sw.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp,
                                       ci, ci, ci, vp, vp]
         lib.swt_banded_sw.restype = ci
-        lib.swt_banded_sw_lanes.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp,
-                                            ci, ci, ci, vp, vp, ci]
-        lib.swt_banded_sw_lanes.restype = ci
         lib.swt_lanes_for.argtypes = [ci, ci]
         lib.swt_lanes_for.restype = ci
         lib.swt_cuda_error_string.argtypes = [ci]

@@ -21,18 +21,19 @@
 // slot e-1's class-0 cell of this step, up from its own class-0 cell of
 // this step, diag from its own class-1 cell of step t-1.
 //
-// Lanes.  LPP lanes hold one pair (a template parameter, 4, 8 or 16) and
-// each lane owns K = 16/LPP consecutive slots, so neighbours inside a lane
-// stay in registers and only the two lane-edge cells of a step cross lanes
-// (one __shfl_down for class 0's up, one __shfl_up for class 1's left).
-// The K cells of one class are independent: K-fold instruction-level
-// parallelism on top of the warps in flight.  swt_lanes_for picks 4 lanes,
-// except 8 for score-only batches under 8,192 pairs: on an H100 (700 W,
-// kernel_ab --sweep, L = 400) 4 lanes were fastest for full statistics at
-// every B from 4,096 to 131,072 (tied with 8 at 4,096) and for
-// score-only from 8,192 on; at B = 4,096 score-only 8 lanes beat 4 by
-// 11-13%, as 4 lanes leave under four warps an SM there.  16 lanes were
-// slowest everywhere (more crossings, no ILP).
+// Lanes.  LPP lanes hold one pair and each lane owns K = 16/LPP
+// consecutive slots, so neighbours inside a lane stay in registers and
+// only the two lane-edge cells of a step cross lanes (one __shfl_down for
+// class 0's up, one __shfl_up for class 1's left).  The K cells of one
+// class are independent: K-fold instruction-level parallelism on top of
+// the warps in flight.  Three kernels are built: full statistics at 4
+// lanes, score-only at 4 lanes, and score-only at 8 lanes for batches
+// under 8,192 pairs.  A sweep of 4, 8 and 16 lanes on an H100 (700 W,
+// L = 400, B from 4,096 to 131,072) chose them: 4 lanes were fastest for
+// full statistics at every B (tied with 8 at 4,096) and for score-only
+// from 8,192 on; at B = 4,096 score-only 8 lanes beat 4 by 11-13%, as 4
+// lanes leave under four warps an SM there.  16 lanes were slowest
+// everywhere (more crossings, no ILP).
 //
 // State.  Scores travel coded as 4*h + a direction code (3 M, 2 I, 1 D,
 // 0 a path starts here), so one max over the coded candidates yields the
@@ -81,8 +82,7 @@
 //
 // What bounds it on an H100: integer instructions per cell (no bytes to
 // speak of, no tensor core applies).  PERF.md has the count, the bound
-// and the measured share, and the per-cell SASS instruction counts
-// (kernel_ab --sass).
+// and the measured share, and the per-cell SASS instruction counts.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (swiftortho_tpu_torch/_build.py).
@@ -101,8 +101,8 @@ constexpr int RING = 128;                 // staged bytes per sequence
 constexpr int CHUNK = 32;                 // positions per staged chunk
 constexpr int PROLOGUE = 16;              // steps that may touch a border
 constexpr int KEY_POS = (1 << 14) - 1;    // 2t + class <= 16383
-// lanes per pair (see the header): 4, except score-only batches of fewer
-// pairs than this, which take 8
+// score-only batches of fewer pairs than this run at 8 lanes per pair,
+// everything else at 4 (see the header)
 constexpr int FEW_LANES_MIN_PAIRS = 8192;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -547,35 +547,33 @@ banded_sw_kernel(const uint8_t* __restrict__ tok0,
     }
 }
 
-template <int LPP>
+template <bool STATS, int LPP>
 void launch(const uint8_t* t0, const uint8_t* t1, const int32_t* n0,
             const int32_t* n1, int B, int pad0, int pad1, const int32_t* tb,
-            int go, int ge, bool aligned, bool score_only, int32_t* o,
-            cudaStream_t s) {
+            int go, int ge, bool aligned, int32_t* o, cudaStream_t s) {
     constexpr int PAIRS = THREADS / LPP;
     const dim3 grid((unsigned)((B + PAIRS - 1) / PAIRS));
-    if (score_only)
-        banded_sw_kernel<false, LPP><<<grid, THREADS, 0, s>>>(
-            t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned, o);
-    else
-        banded_sw_kernel<true, LPP><<<grid, THREADS, 0, s>>>(
-            t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned, o);
+    banded_sw_kernel<STATS, LPP><<<grid, THREADS, 0, s>>>(
+        t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned, o);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Align B pairs on `stream` with `lanes` (4, 8 or 16) lanes per pair.
-// tok0 (B, pad0) / tok1 (B, pad1) uint8 row-major, len0/len1 (B,) int32,
-// table int32[256 + 32*32] (byte->code map, then the code-space
-// BLOSUM62), out (9, B) int32.  Allocates nothing and does not
-// synchronise; returns cudaGetLastError(), or cudaErrorInvalidValue for
-// another lane count.
-int swt_banded_sw_lanes(const void* tok0, const void* tok1, const void* len0,
-                        const void* len1, int B, int pad0, int pad1,
-                        const void* table, int go, int ge, int score_only,
-                        void* out, void* stream, int lanes) {
+// The lanes per pair swt_banded_sw runs a batch of B pairs at.
+int swt_lanes_for(int B, int score_only) {
+    return score_only && B < FEW_LANES_MIN_PAIRS ? 8 : 4;
+}
+
+// Align B pairs on `stream`.  tok0 (B, pad0) / tok1 (B, pad1) uint8
+// row-major, len0/len1 (B,) int32, table int32[256 + 32*32] (byte->code
+// map, then the code-space BLOSUM62), out (9, B) int32.  Allocates
+// nothing and does not synchronise; returns cudaGetLastError().
+int swt_banded_sw(const void* tok0, const void* tok1, const void* len0,
+                  const void* len1, int B, int pad0, int pad1,
+                  const void* table, int go, int ge, int score_only,
+                  void* out, void* stream) {
     if (B <= 0) return (int)cudaGetLastError();
     if (!adj_fits(go, ge)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -589,32 +587,16 @@ int swt_banded_sw_lanes(const void* tok0, const void* tok1, const void* len0,
     const bool aligned = reinterpret_cast<uintptr_t>(t0) % 4 == 0
                          && reinterpret_cast<uintptr_t>(t1) % 4 == 0
                          && pad0 % 4 == 0 && pad1 % 4 == 0;
-    const bool so = score_only != 0;
-    switch (lanes) {
-        case 4: launch<4>(t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned,
-                          so, o, s); break;
-        case 8: launch<8>(t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned,
-                          so, o, s); break;
-        case 16: launch<16>(t0, t1, n0, n1, B, pad0, pad1, tb, go, ge,
-                            aligned, so, o, s); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
+    if (!score_only)
+        launch<true, 4>(t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned,
+                        o, s);
+    else if (swt_lanes_for(B, 1) == 4)
+        launch<false, 4>(t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned,
+                         o, s);
+    else
+        launch<false, 8>(t0, t1, n0, n1, B, pad0, pad1, tb, go, ge, aligned,
+                         o, s);
     return (int)cudaGetLastError();
-}
-
-// The lane count swt_banded_sw uses for a batch of B pairs.
-int swt_lanes_for(int B, int score_only) {
-    return !score_only || B >= FEW_LANES_MIN_PAIRS ? 4 : 8;
-}
-
-// The same with the lane count for B.
-int swt_banded_sw(const void* tok0, const void* tok1, const void* len0,
-                  const void* len1, int B, int pad0, int pad1,
-                  const void* table, int go, int ge, int score_only,
-                  void* out, void* stream) {
-    return swt_banded_sw_lanes(tok0, tok1, len0, len1, B, pad0, pad1, table,
-                               go, ge, score_only, out, stream,
-                               swt_lanes_for(B, score_only));
 }
 
 const char* swt_cuda_error_string(int code) {

@@ -6,10 +6,7 @@
 on the current stream, or raises: there is no fallback to the plain
 version.  ``launches`` counts the launches per variant (``full``,
 ``score_only``) so a run can show that its path went through the kernel;
-``pairs`` counts the pairs those launches aligned.  ``lanes`` picks the
-lanes per pair (4, 8 or 16; by default the kernel's choice for the batch
-size and variant, ``swt_lanes_for``), for measurements that compare the
-three.
+``pairs`` counts the pairs those launches aligned.
 """
 
 from __future__ import annotations
@@ -36,15 +33,12 @@ def reset_counters():
 
 def sw_align_batch_cuda(tok0: torch.Tensor, tok1: torch.Tensor,
                         len0: torch.Tensor, len1: torch.Tensor,
-                        score_only: bool = False,
-                        lanes: int | None = None) -> torch.Tensor:
+                        score_only: bool = False) -> torch.Tensor:
     """Align B pairs on the card.  Same inputs as
     ``banded_sw.sw_align_batch``, which must be contiguous CUDA tensors;
     returns a (9, B) int32 tensor whose rows follow ``FIELDS``.  With
     ``score_only`` the rows after ``bj`` are 0."""
     check_batch(tok0, tok1, len0, len1)
-    if lanes is not None and lanes not in (4, 8, 16):
-        raise ValueError('lanes must be 4, 8 or 16, got %r' % (lanes,))
     dev = tok0.device
     if dev.type != 'cuda':
         raise ValueError('sw_align_batch_cuda needs CUDA tensors, got %s'
@@ -61,13 +55,10 @@ def sw_align_batch_cuda(tok0: torch.Tensor, tok1: torch.Tensor,
     lib = load_kernels()
     table = scoring_tables(dev)['codes']
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if lanes is None:
-        lanes = lib.swt_lanes_for(B, int(bool(score_only)))
-    rc = lib.swt_banded_sw_lanes(tok0.data_ptr(), tok1.data_ptr(),
-                                 len0.data_ptr(), len1.data_ptr(), B, L0, L1,
-                                 table.data_ptr(), GAP_OPEN, GAP_EXTEND,
-                                 int(bool(score_only)), out.data_ptr(), stream,
-                                 lanes)
+    rc = lib.swt_banded_sw(tok0.data_ptr(), tok1.data_ptr(),
+                           len0.data_ptr(), len1.data_ptr(), B, L0, L1,
+                           table.data_ptr(), GAP_OPEN, GAP_EXTEND,
+                           int(bool(score_only)), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('banded SW kernel launch failed: CUDA error %d '
                            '(%s)' % (rc, lib.swt_cuda_error_string(rc)
