@@ -27,7 +27,20 @@ the JAX package on the CPU):
   mcl_cluster, and a 20,480-node component through the block-sparse
   engine, twice, against the scipy oracle;
 - run_all -A mcl on the 1,034-sequence corpus, in a child process that
-  runs beside the search and clustering phases: .sc .opc .clsr .pan md5s.
+  runs beside the search and clustering phases: .sc .opc .clsr .pan md5s;
+- the multi-device and multi-process paths (``multichip``): a 2-rank
+  find_hit fleet on the 41k corpus (two processes joined through
+  SWIFTORTHO_COORD on the one card; the merged .sc md5, each rank's half
+  of the queries, SW launches in every wave, no part file left, each
+  rank's search/barrier/merge seconds); blastp_sharded over a mesh of
+  the card's devices and over the card repeated four times, with and
+  without the pack route (the 1,034-sequence .sc md5, every pair packed);
+  SWIFTORTHO_CANDIDATES=multidb with the reference in five chunks
+  against the host route; demo_multichip on the card against the same
+  step on the CPU (masked tokens byte for byte, the per-query max); seg
+  of the 1,034 queries on the card against the CPU; find_cluster -a mcl
+  under SWIFTORTHO_MCL_MESH=1 (the .clsr md5) and the sharded
+  block-sparse expansion over the card repeated against one device.
 
 ``--baseline`` names an earlier source of ``csrc/banded_sw.cu`` (its C
 entry ``swt_banded_sw`` must take today's arguments, as PR 1's does,
@@ -40,8 +53,8 @@ C++ oracle, the corpus and the pan-genome code are the port's own copies.
 Each phase prints one JSON line: device, build,
 kernel_parity, kernel_time, search_parity, device_search_parity, search,
 device_components, search_device, orth, cluster_parity, cluster_scale,
-pipeline.  Any failed check exits nonzero before the
-result lines.  The last three lines are the card's
+multichip, pipeline.  Any failed check exits nonzero before the
+result lines; every child process has a timeout.  The last three lines are the card's
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line,
 the kernels JSON object and {"ok": true, "device": {...}}.
 """
@@ -92,6 +105,12 @@ PIPE_NWK_MD5_NO_TOOLS = 'dededa9ff50bd04ac09bfada7d194d5f'
 SCALE_FAMILIES, SCALE_CHAIN, CLIQUE = 5200, 225, 20
 SCALE_MIN_EDGES = 1_000_000
 BIG_COMPONENT_CLIQUES, BIG_COMPONENT_MB = 1024, 1024    # 20,480 nodes
+# multichip: ranks of the find_hit fleet, the seconds a rank may take, the
+# reference chunk size that cuts SMALL into five multi-db shards, and the
+# component the sharded expansion runs on (128 cliques of 20, mb = 256)
+FLEET_RANKS, FLEET_TIMEOUT = 2, 600
+MULTIDB_CHUNK = 250
+MESH_COMPONENT_CLIQUES, MESH_COMPONENT_MB = 128, 256
 # kernel parity: B = 1000 pairs at each length (score-only runs at 8
 # lanes a pair there), and one batch of 8,192 (score-only at 4 lanes)
 PARITY_LENGTHS = (128, 500, 1536, 4096)
@@ -949,6 +968,310 @@ def phase_cluster_scale(np, torch):
          seconds=round(time.time() - t_phase, 3))
 
 
+FLEET_CHILD = r"""
+import json, sys, time
+sys.modules['jax'] = None
+sys.modules['swiftortho_tpu'] = None
+from swiftortho_tpu_torch.cli.find_hit import main
+from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+cu.reset_counters()
+t0 = time.time()
+rc = main(['find_hit', '-p', 'blastp', '-i', sys.argv[1], '-d', sys.argv[1],
+           '-o', sys.argv[2]])
+print(json.dumps({'rc': rc, 'seconds': time.time() - t0,
+                  'launches': cu.launches, 'pairs': cu.pairs}))
+"""
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_fleet(tmp):
+    """find_hit on the 41k corpus as a FLEET_RANKS-rank fleet on the card:
+    the merged .sc, each rank's half of the queries, SW launches in each
+    rank's every wave, no part file left.  Returns (the result row, the
+    launches summed over the ranks)."""
+    import glob
+    from swiftortho_tpu_torch.parallel.distributed import rank_query_range
+    fsa = os.path.join(tmp, 'big.fsa')
+    check(md5(fsa) == BIG_FSA_MD5, 'big.fsa missing or changed')
+    fdir = os.path.join(tmp, 'fleet')
+    os.makedirs(fdir)
+    out = os.path.join(fdir, 'big.sc')
+    env = dict(os.environ, SWIFTORTHO_PLATFORM='cuda',
+               SWIFTORTHO_COORD='127.0.0.1:%d' % free_port(),
+               SWIFTORTHO_NPROCS=str(FLEET_RANKS),
+               SWIFTORTHO_DIST_TIMEOUT=str(FLEET_TIMEOUT))
+    ranks, t0 = [], time.time()
+    try:
+        for r in range(FLEET_RANKS):
+            files = [open(os.path.join(fdir, 'rank%d.%s' % (r, x)), 'w')
+                     for x in ('out', 'err')]
+            ranks.append((subprocess.Popen(
+                [sys.executable, '-c', FLEET_CHILD, fsa, out],
+                env=dict(env, SWIFTORTHO_PROC_ID=str(r)), stdout=files[0],
+                stderr=files[1],
+                cwd=os.path.dirname(os.path.abspath(__file__))), files))
+        for proc, _ in ranks:
+            proc.wait(timeout=max(1.0, FLEET_TIMEOUT - (time.time() - t0)))
+    finally:
+        for proc, files in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in files:
+                f.close()
+    wall = time.time() - t0
+    n = sum(1 for ln in open(fsa) if ln.startswith('>'))
+    rows, launches = [], {'full': 0, 'score_only': 0}
+    for r, (proc, files) in enumerate(ranks):
+        with open(files[0].name) as f:
+            lines = f.read().splitlines()
+        with open(files[1].name) as f:
+            err = f.read()
+        check(proc.returncode == 0 and lines,
+              'fleet rank %d exited %s: %s' % (r, proc.returncode,
+                                               err[-3000:]))
+        res = json.loads(lines[-1])
+        check(res['rc'] == 0, 'fleet rank %d returned %s' % (r, res['rc']))
+        ev = events_of(err)
+        span = [(e['q_lo'], e['q_hi']) for e in ev
+                if e['stage'] == 'fleet_rank_range']
+        check(span == [rank_query_range(0, n, FLEET_RANKS, r)],
+              'fleet rank %d searched %s' % (r, span))
+        waves = [e for e in ev if e['stage'] == 'search_wave']
+        check(waves and all(sum(w['sw_launches'].values()) > 0
+                            for w in waves),
+              'fleet rank %d: a wave without SW launches' % r)
+        check(res['launches']['full'] > 0
+              and res['launches']['score_only'] > 0,
+              'fleet rank %d launched %s' % (r, res['launches']))
+        for k in launches:
+            launches[k] += res['launches'][k]
+        ph = [e for e in ev if e['stage'] == 'fleet_rank_phases']
+        check(len(ph) == 1, 'fleet rank %d logged no phases' % r)
+        rows.append({'rank': r, 'queries': list(span[0]),
+                     'waves': len(waves), 'launches': res['launches'],
+                     'pairs': res['pairs'],
+                     'process_s': round(res['seconds'], 3),
+                     **{k: ph[0][k] for k in ('search_s', 'barrier_s',
+                                              'merge_s', 'total_s')}})
+    got = md5(out)
+    check(got == BIG_SC_MD5, 'fleet: .sc md5 %s != the JAX package\'s %s'
+          % (got, BIG_SC_MD5))
+    left = glob.glob(out + '.part*')
+    check(not left, 'fleet left part files: %s' % left)
+    return {'ranks': rows, 'sequences': n, 'sc_md5': got,
+            'wall_s': round(wall, 3)}, launches
+
+
+def run_mesh_search(tmp, torch):
+    """blastp_sharded on SMALL over a mesh of the card's devices (gather
+    and pack routes) and over the card repeated as a (2, 2) mesh (pack):
+    the .sc md5 each time, every pair packed on the pack route.  Returns
+    (the rows, the launches summed over the runs)."""
+    from swiftortho_tpu_torch.config import SearchConfig
+    from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+    from swiftortho_tpu_torch.parallel.distributed import local_devices
+    from swiftortho_tpu_torch.parallel.mesh import blastp_sharded, make_mesh
+    fsa = os.path.join(tmp, 'small.fsa')
+    check(md5(fsa) == SMALL_FSA_MD5, 'small.fsa missing or changed')
+    db = SeqDB.from_path(fsa)
+    cards = local_devices(torch.device('cuda'))
+    pack = {'SWIFTORTHO_DEVICE_PACK': 'force'}
+    runs = [('cards', make_mesh(devices=cards), {}),
+            ('cards_pack', make_mesh(devices=cards), pack),
+            ('card_2x2_pack', make_mesh(n_data=2, n_db=2,
+                                        devices=[cards[0]] * 4), pack)]
+    rows, launches = [], {'full': 0, 'score_only': 0}
+    for name, mesh, env in runs:
+        out = os.path.join(tmp, 'small.mesh_%s.sc' % name)
+        buf = io.StringIO()
+        cu.reset_counters()
+        t0 = time.time()
+        with env_set(SWIFTORTHO_PLATFORM='cuda', **env), \
+                contextlib.redirect_stderr(buf), open(out, 'w') as fh:
+            for row in blastp_sharded(db, db, SearchConfig(), mesh=mesh,
+                                      device=torch.device('cuda')):
+                fh.write(row)
+        secs = time.time() - t0
+        ran = dict(cu.launches)
+        got = md5(out)
+        check(got == SMALL_SC_MD5, 'mesh %s: .sc md5 %s != the JAX '
+              'package\'s %s' % (name, got, SMALL_SC_MD5))
+        check(ran['full'] > 0 and ran['score_only'] > 0,
+              'mesh %s launched %s' % (name, ran))
+        packed, gathered = route_pairs(events_of(buf.getvalue()))
+        if env:
+            check(packed > 0 and gathered == 0, 'mesh %s: packed %d, '
+                  'host-gathered %d' % (name, packed, gathered))
+        for k in launches:
+            launches[k] += ran[k]
+        rows.append({'run': name, 'mesh': list(mesh.shape),
+                     'devices': [str(d) for d in mesh.flat()],
+                     'sc_md5': got, 'seconds': round(secs, 3),
+                     'packed_pairs': packed, 'gathered_pairs': gathered,
+                     'launches': ran})
+    return rows, launches
+
+
+def run_multidb(tmp):
+    """find_hit on SMALL with the reference cut into MULTIDB_CHUNK-sequence
+    chunks, on the host route and under SWIFTORTHO_CANDIDATES=multidb:
+    the same bytes, no shard falling back to the host engine."""
+    fsa = os.path.join(tmp, 'small.fsa')
+    from swiftortho_tpu_torch.cli.find_hit import main
+    res = {}
+    for name, env in (('host', {}),
+                      ('multidb', {'SWIFTORTHO_CANDIDATES': 'multidb'})):
+        out = os.path.join(tmp, 'small.c%d.%s.sc' % (MULTIDB_CHUNK, name))
+        secs, ev = run_cli(main, ['find_hit', '-p', 'blastp', '-i', fsa,
+                                  '-d', fsa, '-o', out, '-c',
+                                  str(MULTIDB_CHUNK)], 'cuda', **env)
+        pa = [e for e in ev if e['stage'] == 'search_phaseA']
+        res[name] = {'sc_md5': md5(out), 'seconds': round(secs, 3),
+                     'fallbacks': len([e for e in ev if e['stage']
+                                       == 'device_candidates_fallback']),
+                     'phaseA': {k: v for k, v in pa[0].items()
+                                if k not in ('ts', 'stage')}}
+    with open(os.path.join(tmp, 'small.c%d.host.sc' % MULTIDB_CHUNK),
+              'rb') as f, open(os.path.join(
+                  tmp, 'small.c%d.multidb.sc' % MULTIDB_CHUNK), 'rb') as g:
+        check(f.read() == g.read(), 'multidb rows != the host route\'s')
+    check(res['multidb']['phaseA'].get('mode') == 'multidb'
+          and res['multidb']['phaseA']['shards_resident'] >= 4,
+          'multidb ran %s' % res['multidb']['phaseA'])
+    check(res['multidb']['fallbacks'] == 0,
+          'a multidb shard fell back to the host engine')
+    return dict(res, chunk=MULTIDB_CHUNK)
+
+
+def run_demo_and_seg(tmp, np, torch):
+    """demo_multichip on the card's mesh and on the card repeated as a
+    (2, 2) mesh, each against the same step on the CPU; seg of SMALL's
+    queries on the card against the CPU.  Returns (the row, launches)."""
+    from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+    from swiftortho_tpu_torch.ops.seg import seg_batch
+    from swiftortho_tpu_torch.parallel.distributed import local_devices
+    from swiftortho_tpu_torch.parallel.mesh import demo_multichip, make_mesh
+    cards = local_devices(torch.device('cuda'))
+    cpu = torch.device('cpu')
+    rows = []
+    cu.reset_counters()
+    for name, shape, devs in (('cards', None, cards),
+                              ('card_2x2', (2, 2), [cards[0]] * 4)):
+        kw = {} if shape is None else {'n_data': 2, 'n_db': 2}
+        got = demo_multichip(mesh=make_mesh(devices=devs, **kw))
+        want = demo_multichip(mesh=make_mesh(devices=[cpu] * len(devs),
+                                             **kw))
+        for k, g, w in zip(('masked', 'bits', 'merged'), got, want):
+            check(g.dtype == w.dtype and np.array_equal(g, w),
+                  'demo_multichip %s on the card != the CPU' % k)
+        masked, bits, merged = got
+        top = np.full(len(merged), -1, np.int64)
+        np.maximum.at(top, np.arange(len(bits)) % len(merged),
+                      bits.astype(np.int64))
+        check(np.array_equal(merged.astype(np.int64), top),
+              'demo_multichip merged != the per-query max of bits')
+        rows.append({'mesh': name, 'queries': len(merged),
+                     'pairs': len(bits), 'masked_equal_cpu': True})
+    launches = dict(cu.launches)
+    check(launches['full'] > 0, 'demo_multichip launched %s' % launches)
+    db = SeqDB.from_path(os.path.join(tmp, 'small.fsa'))
+    toks, lens = db.padded_batch(np.arange(len(db), dtype=np.int64),
+                                 int(db.lengths.max()))
+    # low-complexity openings (a window's entropy is taken against the
+    # first window's counts) and lowercase residues in a third of the rows
+    toks[::6, :40] = ord('A')
+    toks[3::6, :36] = np.frombuffer(b'QP' * 18, np.uint8)
+    toks[1::6] = np.where(toks[1::6] >= 65, toks[1::6] + 32, 0)
+    t0 = time.time()
+    on_card = seg_batch(torch.from_numpy(toks).cuda(),
+                        torch.from_numpy(lens).cuda()).cpu().numpy()
+    card_s = time.time() - t0
+    on_cpu = seg_batch(torch.from_numpy(toks), torch.from_numpy(lens)).numpy()
+    check(np.array_equal(on_card, on_cpu), 'seg_batch on the card != CPU')
+    masked = int((on_cpu == ord('x')).sum())
+    check(masked > 0, 'seg_batch masked nothing')
+    return {'demo': rows, 'seg': {'queries': len(db),
+                                  'width': int(toks.shape[1]),
+                                  'masked_residues': masked,
+                                  'card_s': round(card_s, 3),
+                                  'equal_cpu': True}}, launches
+
+
+def run_mcl_mesh(tmp, opc, np, torch):
+    """find_cluster -a mcl under SWIFTORTHO_MCL_MESH=1 on the 41k graph
+    (the .clsr md5), and the sharded block-sparse expansion over the card
+    repeated 2 and 4 times against one device, by partition."""
+    from swiftortho_tpu_torch.cli.find_cluster import main
+    from swiftortho_tpu_torch.cluster.mcl_blocksparse import mcl_blocksparse
+    from swiftortho_tpu_torch.parallel.mesh import make_mesh
+    out = os.path.join(tmp, 'big.mcl_mesh.clsr')
+    secs, _ = run_cli(main, ['find_cluster', '-i', opc, '-a', 'mcl'], 'cuda',
+                      out, SWIFTORTHO_MCL_MESH='1')
+    got = md5(out)
+    check(got == BIG_CLSR_MD5['mcl'], 'SWIFTORTHO_MCL_MESH: .clsr md5 %s '
+          '!= the JAX package\'s %s' % (got, BIG_CLSR_MD5['mcl']))
+    cuda = torch.device('cuda')
+    rng = np.random.default_rng(7)
+    m = MESH_COMPONENT_CLIQUES * CLIQUE
+    li, lj, lw = clique_chain(np, rng, MESH_COMPONENT_CLIQUES)
+    lw = lw.astype(np.float32)
+    selfw = np.zeros(m, np.float32)
+    np.maximum.at(selfw, li, lw)
+    np.maximum.at(selfw, lj, lw)
+    runs = []
+    for ndev in (1, 2, 4):
+        mesh = make_mesh(n_data=ndev, devices=[cuda] * ndev) \
+            if ndev > 1 else None
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stderr(buf):
+            ri, rj = mcl_blocksparse(m, li, lj, lw, selfw, 1.5,
+                                     mb=MESH_COMPONENT_MB, device=cuda,
+                                     mesh=mesh)
+        ev = events_of(buf.getvalue())[-1]
+        check(ev['devices'] == ndev, 'sharded expansion ran on %s devices, '
+              'not %d' % (ev['devices'], ndev))
+        runs.append({'devices': ndev, 'seconds': round(time.time() - t0, 3),
+                     'iterations': ev['iterations'],
+                     'partition': partition(np, m, ri, rj)})
+    check(all(r['partition'] == runs[0]['partition'] for r in runs),
+          'sharded expansion partitions != the one-device run\'s')
+    check(len(runs[0]['partition']) == MESH_COMPONENT_CLIQUES,
+          'sharded expansion found %d clusters, planted %d'
+          % (len(runs[0]['partition']), MESH_COMPONENT_CLIQUES))
+    return {'find_cluster': {'clsr_md5': got, 'seconds': round(secs, 3)},
+            'blocksparse': {'nodes': m, 'mb': MESH_COMPONENT_MB,
+                            'runs': [{k: v for k, v in r.items()
+                                      if k != 'partition'} for r in runs]}}
+
+
+def phase_multichip(tmp, opc, np, torch):
+    """The multi-device and multi-process paths on the one card; returns
+    the kernel launches of the fleet and of the mesh routes."""
+    t_phase = time.time()
+    fleet, fleet_launches = run_fleet(tmp)
+    mesh, mesh_launches = run_mesh_search(tmp, torch)
+    demo, demo_launches = run_demo_and_seg(tmp, np, torch)
+    for k in mesh_launches:
+        mesh_launches[k] += demo_launches[k]
+    multidb = run_multidb(tmp)
+    mcl = run_mcl_mesh(tmp, opc, np, torch)
+    emit('multichip', fleet=fleet, mesh_search=mesh, multidb=multidb,
+         **demo, mcl_mesh=mcl, launches={'fleet': fleet_launches,
+                                         'mesh': mesh_launches},
+         seconds=round(time.time() - t_phase, 3))
+    return {'fleet': fleet_launches, 'mesh': mesh_launches}
+
+
 PIPELINE_CHILD = r"""
 import json, os, sys, time
 sys.modules['jax'] = None
@@ -1045,7 +1368,7 @@ def phase_pipeline(pipe):
          waited_s=round(waited, 3),
          ran_beside='search_parity, device_search_parity, search, '
                     'device_components, search_device, orth, '
-                    'cluster_parity, cluster_scale')
+                    'cluster_parity, cluster_scale, multichip')
 
 
 def main(argv=None):
@@ -1073,6 +1396,7 @@ def main(argv=None):
             opc = phase_orth(tmp)
             phase_cluster_parity(tmp, opc, torch)
             phase_cluster_scale(np, torch)
+            multi = phase_multichip(tmp, opc, np, torch)
             phase_pipeline(pipe)
         finally:
             if pipe['proc'].poll() is None:
@@ -1088,7 +1412,9 @@ def main(argv=None):
                 'source': SOURCE, 'replaces': REPLACES,
                 'launches': launches[var],
                 'launches_by_route': {'host_gather': launches[var],
-                                      'device_pack': packed[var]},
+                                      'device_pack': packed[var],
+                                      'fleet': multi['fleet'][var],
+                                      'mesh': multi['mesh'][var]},
                 'max_abs_err': max_err[var],
                 'ms': times[var]['ms'], 'plain_ms': times[var]['plain_ms'],
                 'bound_ms': times[var]['bound_ms'],

@@ -7,7 +7,10 @@ keyed by a sha256 of the sources and the compile command, so a changed
 source or flag always rebuilds and a stale binary is never loaded.  The
 command carries ``-Xptxas -v``; its report (registers, shared memory,
 spills per kernel) is kept beside the library and returned by
-``build_info``.  Only sources in the repository are used.
+``build_info``.  Only sources in the repository are used.  Processes that
+build at first use together (fleet ranks on one host) each compile to a
+temporary file of their own pid; the report, then the library, are
+published with ``os.replace``, so no process reads a half-written file.
 
 Counterpart of ``swiftortho_tpu/native/__init__.py:36-68`` (the g++
 build of the host kernels).
@@ -88,8 +91,9 @@ def load_kernels() -> ctypes.CDLL:
                 raise RuntimeError('nvcc failed (exit %d): %s\n%s'
                                    % (r.returncode, ' '.join(cmd),
                                       (r.stdout + r.stderr)[-6000:]))
-            with open(report, 'w') as f:
+            with open(tmp + '.ptxas.txt', 'w') as f:
                 f.write(r.stdout + r.stderr)
+            os.replace(tmp + '.ptxas.txt', report)
             os.replace(tmp, so)
         with open(report) as f:
             ptxas = _ptxas_lines(f.read())

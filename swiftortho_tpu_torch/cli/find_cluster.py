@@ -19,13 +19,14 @@ import sys
 from ..cluster.driver import find_cluster_stream
 from ..config import ClusterConfig
 from ..device import get_device
-from ._args import parse_args
+from ._args import apply_platform_env, parse_args
 
 DEFAULTS = {'-i': '', '-d': '0.5', '-p': '-10000', '-I': '1.5',
             '-a': 'apc', '-t': '2', '-b': '25000000'}
 
 
 def main(argv=None):
+    apply_platform_env()
     args = parse_args(argv or sys.argv, DEFAULTS)
     if not args['-i']:
         print('Usage: python -m swiftortho_tpu_torch.cli.find_cluster '

@@ -14,7 +14,7 @@ from __future__ import annotations
 import sys
 
 from ..config import OrthConfig
-from ._args import parse_args
+from ._args import apply_platform_env, parse_args
 
 DEFAULTS = {'-i': '', '-c': '0.5', '-y': '0', '-n': 'no',
             '-t': 'n', '-a': '4', '-T': './tmp/', '-s': '|',
@@ -22,6 +22,7 @@ DEFAULTS = {'-i': '', '-c': '0.5', '-y': '0', '-n': 'no',
 
 
 def main(argv=None):
+    apply_platform_env()
     args = parse_args(argv or sys.argv, DEFAULTS)
     if not args['-i']:
         print('Usage: python -m swiftortho_tpu_torch.cli.find_orth -i foo.sc '

@@ -6,8 +6,12 @@ search -> orthology -> clustering -> pan-genome -> RBH species tree
 (``search.blastp.blastp_to_file``), stage 3 the port's clustering driver,
 both on the device named by ``SWIFTORTHO_PLATFORM`` (``cuda`` by default,
 or ``cpu``); stages 2 and 4-6 are the port's copies of the JAX
-package's host code (``orth/``, ``analysis/``).  Multi-process fleets
-(``SWIFTORTHO_COORD``) are not ported.
+package's host code (``orth/``, ``analysis/``).
+
+Fleet (SWIFTORTHO_COORD, as ``cli.find_hit``): the search is rank-split
+(``parallel.distributed.fleet_search_to_file``) and the later stages run
+on rank 0 only; every other rank returns after the search (the JAX
+``run_all``'s fleet branches, :63-126).
 
 Usage: python -m swiftortho_tpu_torch.cli.run_all -i merged.fsa [-p operons] ...
 Outputs in <input>_results/: .sc .opc .clsr .pan .aln.trim .nwk
@@ -31,10 +35,14 @@ from ..cluster.driver import find_cluster_stream
 from ..config import ClusterConfig, OrthConfig, SearchConfig
 from ..device import get_device
 from ..io_fasta import SeqDB, iter_fasta, write_fasta
+from ..ops.index import save_index
 from ..orth.inference import find_orth_blocks
-from ..search.blastp import blastp_to_file
+from ..parallel.distributed import (barrier, fleet_search_to_file,
+                                    process_count, process_index,
+                                    search_mesh_context)
+from ..search.blastp import IndexSource, blastp_to_file
 from ..utils import fresh, log_event, stage
-from ._args import parse_args
+from ._args import apply_platform_env, parse_args
 
 DEFAULTS = {'-i': '', '-r': '', '-p': '', '-s': '1111111', '-c': '.5',
             '-y': '50', '-n': 'no', '-l': '.05', '-u': '.95', '-a': '1',
@@ -44,6 +52,7 @@ DEFAULTS = {'-i': '', '-r': '', '-p': '', '-s': '1111111', '-c': '.5',
 
 
 def main(argv=None):
+    apply_platform_env()
     args = parse_args(argv or sys.argv, DEFAULTS)
     if not args['-i']:
         print('Usage: python -m swiftortho_tpu_torch.cli.run_all -i '
@@ -51,11 +60,8 @@ def main(argv=None):
               '[-y idy] [-n norm] [-l spec-thr] [-u core-thr] [-A mcl|apc] '
               '[-I infl] [-v hits]')
         return 1
-    if os.environ.get('SWIFTORTHO_COORD'):
-        raise NotImplementedError(
-            'SWIFTORTHO_COORD: multi-process fleets are not ported to '
-            'PyTorch yet; run without it on one device')
     device = get_device()
+    pid, fleet = process_index(), process_count() > 1
     fas = args['-i']
     sfx = fas.split(os.sep)[-1]
     res = '%s_results' % fas
@@ -72,17 +78,51 @@ def main(argv=None):
         log_event('search', skipped=True)
     elif args.get('-z') == 'fast':
         # run_all_fast variant (scripts/run_all_fast.py): collapse exact
-        # duplicates, search the nr set, re-expand the hit table
+        # duplicates, search the nr set, re-expand the hit table.  In a
+        # fleet, only rank 0 writes the shared nr fasta and the expanded
+        # table (concurrent same-path writes would corrupt them); the nr
+        # search itself is rank-split like the plain branch.
         nr_path = '%s/%s.nr.fsa' % (res, sfx)
-        with open(fas) as fh:
-            write_fasta(nr_path, list(nr_collapse(iter_fasta(fh))))
+        if not fleet or pid == 0:
+            with open(fas) as fh:
+                write_fasta(nr_path, list(nr_collapse(iter_fasta(fh))))
         nr_sc = '%s/%s.nr.sc' % (res, sfx)
-        blastp_to_file(nr_path, nr_path, nr_sc, scfg, device=device)
-        with open(nr_sc) as fh, open(sc_path, 'w') as out:
-            for line in nr_expand(fh):
-                out.write(line)
+        if fleet:
+            barrier('swiftortho_runall_nr')
+            db = SeqDB.from_path(nr_path)
+            fleet_search_to_file(db, db, scfg, nr_sc, device=device)
+        else:
+            blastp_to_file(nr_path, nr_path, nr_sc, scfg, device=device)
+        if not fleet or pid == 0:
+            with open(nr_sc) as fh, open(sc_path, 'w') as out:
+                for line in nr_expand(fh):
+                    out.write(line)
+    elif fleet:
+        # fleet: rank-split query ranges + rank-0 ordered merge; rank 0
+        # builds the chunk indexes ONCE (one chunk resident, persisted
+        # like `-p makedb`) so the N ranks stream a shared prebuilt db
+        # instead of each rebuilding every chunk — the reference's
+        # formatdb-then-fan-out (find_hit.py:282-283)
+        db = SeqDB.from_path(fas)
+        db_prefix = '%s/%s.fleetdb' % (res, sfx)
+        if pid == 0:
+            # drop stale chunk files first: IndexSource.from_disk globs
+            # 'prefix.*.npz', so leftovers from a previous run with more
+            # chunks would be loaded alongside the fresh ones
+            import glob as _glob
+            for stale in _glob.glob('%s.*.npz' % db_prefix):
+                os.remove(stale)
+            for ci, ix in enumerate(IndexSource.from_build(db, scfg)):
+                save_index('%s.%d.npz' % (db_prefix, ci), ix)
+        barrier('swiftortho_runall_db')
+        fleet_search_to_file(db, db, scfg, sc_path, db_prefix=db_prefix,
+                             device=device)
     else:
-        blastp_to_file(fas, fas, sc_path, scfg, device=device)
+        with search_mesh_context():
+            blastp_to_file(fas, fas, sc_path, scfg, device=device)
+    if fleet and pid != 0:
+        log_event('fleet_rank_done', rank=pid)
+        return 0
     log_event('search', seconds=round(time() - t0, 3))
     print('all to all homologous searching time:', time() - t0)
 

@@ -6,16 +6,15 @@ names: pan_genome rbh2phy orth2phy get_rbh operon_cluster nr_flt nr2full
 """
 
 # Copied from ``swiftortho_tpu/cli/scripts.py``, with its own COMMANDS
-# table over the port's copies of ``analysis/`` and ``cluster/fsfdp.py``.
-# The JAX set-up call at the top of ``main`` is left out: every command
-# is host code.
+# table over the port's copies of ``analysis/`` and ``cluster/fsfdp.py``;
+# ``apply_platform_env`` is the port's (``cli/_args.py``).
 
 from __future__ import annotations
 
 import sys
 
 from ..io_fasta import SeqDB, iter_fasta
-from ._args import parse_args
+from ._args import apply_platform_env, parse_args
 
 
 def cmd_pan_genome(argv):
@@ -224,6 +223,7 @@ COMMANDS = {name[4:]: fn for name, fn in list(globals().items())
 
 
 def main(argv=None):
+    apply_platform_env()
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] not in COMMANDS:
         print(__doc__)

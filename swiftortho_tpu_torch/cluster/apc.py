@@ -281,8 +281,7 @@ def _apclust_ref_py(ei: np.ndarray, ek: np.ndarray, s: np.ndarray,
     streaming emulation of the reference apclust_blk (find_cluster.py:
     406-513): never-reset/never-demoted row-max registers, float64 math
     with float32 R/A stores per pass, dead convergence check (full itr
-    iterations), streaming exemplar updates.  Copied from the JAX
-    package."""
+    iterations), streaming exemplar updates."""
     beta = 1.0 - damp
     nr = len(ei)
     s64 = s.astype(np.float32).astype(np.float64)
@@ -350,16 +349,15 @@ def _apclust_ref_py(ei: np.ndarray, ek: np.ndarray, s: np.ndarray,
 def apc_cluster_faithful(n: int, ei: np.ndarray, ej: np.ndarray,
                          w: np.ndarray, n_taxa: int, damp: float = 0.5,
                          itr: int = 100) -> List[List[int]]:
-    """Reference-faithful AP (host, copied from the JAX package):
-    identical partitions to the runnable reference `find_cluster.py -a
-    apc` (apclust_blk path, the -b default).
+    """Reference-faithful AP: identical partitions to the runnable
+    reference `find_cluster.py -a apc` (apclust_blk path, the -b default).
 
     Row order matters (the streaming quirks are order-dependent), so the
     caller must pass edges in input-line order WITH duplicates retained;
     this builds the fc2mat row stream — (x, y), (y, x) interleaved per
     line, then the n preference diagonal rows (find_cluster.py:806-848) —
     and runs the streaming kernel (native C++, pure-Python fallback,
-    bit-identical)."""
+    bit-identical; pinned by tests/test_fallbacks.py)."""
     if n == 0:
         return []
     # zero edges still cluster: every node gets its preference diagonal
@@ -386,7 +384,14 @@ def apc_cluster_faithful(n: int, ei: np.ndarray, ej: np.ndarray,
         warn_fallback('apclust_ref',
                       'native .so unavailable; pure-Python streaming AP')
         lab = _apclust_ref_py(i_all, k_all, s_all, n, damp=damp, itr=itr)
-    return _groups(n, lab)
+    labels = connected_components(n, np.arange(n), lab)
+    out: List[List[int]] = []
+    order = np.argsort(labels, kind='stable')
+    bounds = np.searchsorted(labels[order], np.arange(labels.max() + 2))
+    for c in range(labels.max() + 1):
+        out.append(sorted(int(x) for x in order[bounds[c]:bounds[c + 1]]))
+    out.sort(key=lambda cl: cl[0])
+    return out
 
 
 def apc_cluster(n: int, ei: np.ndarray, ej: np.ndarray, w: np.ndarray,

@@ -266,8 +266,9 @@ def _run_sparse_comp(c, comp_nodes, ei, ej, w, e_order, e_bounds,
     """Oversize component (> max_dense nodes): block-sparse MCL
     (``mcl_blocksparse.py``, dense-tile products on ``device``) by
     default; SWIFTORTHO_MCL=scipy selects the host csr loop (same math,
-    used as the parity oracle in tests).  SWIFTORTHO_MCL_MESH (the JAX
-    package's multi-device expansion) is not ported and raises."""
+    used as the parity oracle in tests).  SWIFTORTHO_MCL_MESH=1 shards
+    the expansion over the local devices of ``device``'s platform when
+    there is more than one (identical partitions)."""
     import os
 
     nodes = comp_nodes[c]
@@ -289,15 +290,21 @@ def _run_sparse_comp(c, comp_nodes, ei, ej, w, e_order, e_bounds,
         xr = _mcl_sparse(mat, inflation, prune)
         ri, rj = (xr > prune).nonzero()
     else:
-        if os.environ.get('SWIFTORTHO_MCL_MESH', '') not in ('', '0'):
-            raise NotImplementedError(
-                'SWIFTORTHO_MCL_MESH: the multi-device block-sparse '
-                'expansion is not ported to PyTorch yet')
         from .mcl_blocksparse import mcl_blocksparse
+
+        # SWIFTORTHO_MCL_MESH=1: shard the expansion matmuls over every
+        # local device (mcl_blocksparse mesh mode); identical partitions
+        mesh = None
+        if os.environ.get('SWIFTORTHO_MCL_MESH', '') not in ('', '0'):
+            from ..parallel.distributed import local_devices
+            from ..parallel.mesh import make_mesh
+            devs = local_devices(device if device is not None else 'cpu')
+            if len(devs) > 1:
+                mesh = make_mesh(devices=devs)
         ri, rj = mcl_blocksparse(m, li, lj, w[sel].astype(np.float32),
                                  selfw, float(inflation), prune,
                                  ckpt=ckpt, ckpt_key=ckpt_key,
-                                 device=device)
+                                 device=device, mesh=mesh)
     out = []
     if len(ri):
         sub_labels = connected_components(m, ri, rj)

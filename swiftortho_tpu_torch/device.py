@@ -31,6 +31,31 @@ def get_device() -> torch.device:
     return torch.device(plat)
 
 
+def indexed(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names the current card
+    (``cuda:N``), so ``cuda`` and ``cuda:0`` key one cache entry on one
+    card.  Other devices are returned as they are."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def local_devices(device) -> list:
+    """The devices of ``device``'s platform that this process may use:
+    every card for ``cuda`` (raises without one), the one CPU for
+    ``cpu``.  A fleet rank narrows this to its own cards
+    (``parallel.distributed.local_devices``)."""
+    kind = torch.device(device).type
+    if kind == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA card: torch.cuda.is_available() is '
+                               'False')
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(kind)]
+
+
 def synchronize(device: torch.device):
     """Wait for the work queued on ``device`` (a no-op on the CPU)."""
     if device.type == 'cuda':

@@ -11,10 +11,14 @@ fields bit for bit: ``score, bi, bj`` (best cell), ``sti, stj``
   wavefront of the JAX ``sw_align_batch`` with per-cell path statistics,
   a Python loop over anti-diagonal pairs on (9, 17, B) state tensors.
   It is what runs on the CPU and what the CUDA kernel is held against.
-- ``sw_align_auto`` dispatches by the tensors' device: CUDA tensors go to
-  the hand-written kernel (``banded_sw_cuda``), which raises on any build
-  or launch error; CPU tensors go to the plain version.  Nothing falls
-  back from one to the other.
+- ``sw_align_local`` dispatches by the tensors' device: CUDA tensors go
+  to the hand-written kernel (``banded_sw_cuda``), which raises on any
+  build or launch error; CPU tensors go to the plain version.  Nothing
+  falls back from one to the other.
+- ``sw_align_auto`` is the search's entry: with a search mesh active
+  (``parallel.mesh.use_search_mesh``) the batch is split over the mesh
+  devices (``parallel.mesh.sw_align_sharded``, as the JAX
+  ``sw_align_auto`` does at :419-425), else ``sw_align_local``.
 
 Both take lengths clamped to the padded widths, which must lie in
 [1, MAX_LEN]: the kernel packs the best cell as ``i * 8192 + j``.
@@ -30,6 +34,7 @@ import torch
 from ..constants import (B62_BYTES, B62_CODES, BYTE2CODE,
                          GAP_EXTEND, GAP_OPEN, KA_GAPPED_LAMBDA,
                          KA_GAPPED_LNK, KBOUND, LN2)
+from ..device import indexed
 
 FIELDS = ('score', 'bi', 'bj', 'sti', 'stj', 'idy', 'aln', 'mis', 'gap')
 MAX_LEN = 8191
@@ -40,9 +45,9 @@ _H, _TR, _IDY, _ALN, _MIS, _GAP, _OP, _STI, _STJ = range(9)
 _NEUTRAL = (0, 0, 0, 0, 0, 0, -1, 0, 0)     # an empty cell (op = -1)
 
 
-@functools.lru_cache(maxsize=None)
 def scoring_tables(device) -> dict:
-    """The scoring parameters as int32 tensors on ``device``.
+    """The scoring parameters as int32 tensors on ``device``, built once
+    per card: a bare ``cuda`` is keyed as the current ``cuda:N``.
 
     ``sub_flat``: the 256x256 raw-byte BLOSUM62 (``B62_BYTES``) flattened,
     read by the plain version at ``c1 * 256 + c0``.
@@ -50,7 +55,11 @@ def scoring_tables(device) -> dict:
     ``B62_CODES``, read by the kernel.  Both give the same score for
     every byte pair (case-folded letters, -4 for everything else).
     """
-    device = torch.device(device)
+    return _scoring_tables(indexed(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _scoring_tables(device: torch.device) -> dict:
     codes = np.concatenate([BYTE2CODE.astype(np.int32),
                             B62_CODES.astype(np.int32).reshape(-1)])
     return {
@@ -224,6 +233,21 @@ def sw_align_batch(tok0: torch.Tensor, tok1: torch.Tensor,
 def sw_align_auto(tok0: torch.Tensor, tok1: torch.Tensor,
                   len0: torch.Tensor, len1: torch.Tensor,
                   score_only: bool = False) -> dict:
+    """Align a batch: over the active search mesh's devices when one is
+    set, else on the tensors' device (``sw_align_local``).  Results are on
+    ``tok0``'s device either way; same contract as ``sw_align_batch``."""
+    # lazy import: parallel.mesh imports this module at load time
+    from ..parallel import mesh as _meshmod
+    m = _meshmod.active_search_mesh()
+    if m is not None:
+        return _meshmod.sw_align_sharded(m, tok0, tok1, len0, len1,
+                                         score_only=score_only)
+    return sw_align_local(tok0, tok1, len0, len1, score_only=score_only)
+
+
+def sw_align_local(tok0: torch.Tensor, tok1: torch.Tensor,
+                   len0: torch.Tensor, len1: torch.Tensor,
+                   score_only: bool = False) -> dict:
     """Align a batch on the tensors' device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  Same contract as
     ``sw_align_batch``."""

@@ -3,8 +3,9 @@
 ``swiftortho_tpu/ops/banded_sw_pallas.py::sw_align_batch_pallas``.
 
 ``sw_align_batch_cuda`` takes CUDA tensors only and launches the kernel
-on the current stream, or raises: there is no fallback to the plain
-version.  ``launches`` counts the launches per variant (``full``,
+on the current stream of the tensors' card, with that card made current
+for the launch (a mesh shard may live on another card than the current
+one), or raises: there is no fallback to the plain version.  ``launches`` counts the launches per variant (``full``,
 ``score_only``) so a run can show that its path went through the kernel;
 ``pairs`` counts the pairs those launches aligned.
 """
@@ -54,11 +55,13 @@ def sw_align_batch_cuda(tok0: torch.Tensor, tok1: torch.Tensor,
         return out
     lib = load_kernels()
     table = scoring_tables(dev)['codes']
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.swt_banded_sw(tok0.data_ptr(), tok1.data_ptr(),
-                           len0.data_ptr(), len1.data_ptr(), B, L0, L1,
-                           table.data_ptr(), GAP_OPEN, GAP_EXTEND,
-                           int(bool(score_only)), out.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.swt_banded_sw(tok0.data_ptr(), tok1.data_ptr(),
+                               len0.data_ptr(), len1.data_ptr(), B, L0, L1,
+                               table.data_ptr(), GAP_OPEN, GAP_EXTEND,
+                               int(bool(score_only)), out.data_ptr(),
+                               stream)
     if rc != 0:
         raise RuntimeError('banded SW kernel launch failed: CUDA error %d '
                            '(%s)' % (rc, lib.swt_cuda_error_string(rc)

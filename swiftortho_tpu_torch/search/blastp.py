@@ -35,8 +35,15 @@ byte-identical to it.  What differs is the schedule and the device:
   candidate engine there (``search.candidates_device``) and
   ``SWIFTORTHO_DEVICE_PACK=force`` packs the pair tokens there from
   resident tables (``ops.device_pack``);
-- the multi-db shard path (``SWIFTORTHO_CANDIDATES=multidb``) is not
-  ported (``NotImplementedError``).
+- ``SWIFTORTHO_CANDIDATES=multidb`` holds every chunk index resident
+  and fans each wave's candidate generation out over them, one device
+  engine per chunk, round-robin over the active mesh's 'db' devices
+  (``search.candidates_multidb``); under a search mesh
+  (``parallel.mesh``) every alignment batch, and the pair packing, split
+  over the mesh devices.  Both write the same rows;
+- each ``search_wave`` event counts the banded SW kernel launches of its
+  wave (``sw_launches``, per variant; the counter of
+  ``ops.banded_sw_cuda``, exact at the default pipeline width 1).
 
 Named deviation (tie order): the reference ranks candidates and final m8
 rows with seeded UNSTABLE quicksorts (fsearch.py qsort :189-327, final sort
@@ -91,9 +98,14 @@ def use_prepass(device: torch.device) -> bool:
 
 
 def _align_on(device, t0, t1, l0, l1, score_only: bool = False) -> dict:
-    """Align one padded host batch on ``device``; returns numpy arrays
-    keyed by ``FIELDS`` (one stacked device-to-host copy)."""
-    args = [torch.from_numpy(x).to(device) for x in (t0, t1, l0, l1)]
+    """Align one padded host batch on ``device``, or over the active
+    search mesh's devices (each shard goes straight from the host to its
+    device); returns numpy arrays keyed by ``FIELDS`` (one stacked
+    device-to-host copy)."""
+    from ..parallel.mesh import active_search_mesh
+    args = [torch.from_numpy(x) for x in (t0, t1, l0, l1)]
+    if active_search_mesh() is None:
+        args = [x.to(device) for x in args]
     best = sw_align_auto(*args, score_only=score_only)
     host = torch.stack([best[k] for k in FIELDS]).cpu().numpy()
     return dict(zip(FIELDS, host))
@@ -507,12 +519,9 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
 
     # candidate engine: host (vectorized numpy + native C++ chain) by
     # default; SWIFTORTHO_CANDIDATES=device runs it on ``device`` (same
-    # Candidates); the multi-db shard path (=multidb) is not ported
+    # Candidates); =multidb fans it out over resident shards (phase A)
     import os as _os
     _cand_mode = _os.environ.get('SWIFTORTHO_CANDIDATES', '')
-    if _cand_mode == 'multidb':
-        raise NotImplementedError(
-            'SWIFTORTHO_CANDIDATES=multidb is not ported to PyTorch')
     if _cand_mode == 'device':
         from functools import partial
 
@@ -543,6 +552,26 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         try:
             _tA0 = _time.time()
             n_chunks = len(source)
+            if _cand_mode == 'multidb':
+                # P2 reference sharding: every chunk index device-
+                # resident as a 'db'-axis shard, one wave fanned out
+                # over all shards (candidates_multidb).  Spill order =
+                # shard order = chunk order, so output is byte-identical
+                # to the serial chunk sweep.
+                from .candidates_multidb import generate_candidates_multidb
+                indexes_all = [source.get(ci) for ci in range(n_chunks)]
+                for wi in range(len(waves)):
+                    toks, lens = wave_tokens(wi)
+                    for cand in generate_candidates_multidb(
+                            toks, lens, ref, indexes_all, alphabets,
+                            cfg.seeds, platform=device):
+                        spill.append(wi, cand)
+                    _signal(wi)
+                log_event('search_phaseA', chunks=n_chunks,
+                          waves=len(waves), mode='multidb',
+                          shards_resident=n_chunks,
+                          cand_s=round(_time.time() - _tA0, 2))
+                return
             # candidate generation is single-thread numpy + a
             # GIL-releasing native engine; a small wave pool overlaps
             # the numpy of one wave with the native part of another
@@ -738,6 +767,8 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
             raise phaseA_err[0]
 
     # ---- phase B: per-wave merge, rank, align, policy, emit ----
+    from ..ops import banded_sw_cuda as _cu
+
     def _wave_body(wi):
         """Merge, rank, align, policy and format one wave; returns its
         output rows.  Wave bodies are independent (each owns its tokens
@@ -750,6 +781,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
             if phaseA_err:
                 raise phaseA_err[0]
         _t0 = _time.time()
+        _launch0 = dict(_cu.launches)
         toks, lens = wave_tokens(wi)
         if isinstance(masked.get(wi), str):
             import os
@@ -1082,7 +1114,9 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                   policy_s=round(_t_align2 - _t_align1, 2),
                   esc_queries=esc_queries, esc_rounds=esc_rounds,
                   rung0=rung0, packed_pairs=route['packed'],
-                  gathered_pairs=route['gathered'])
+                  gathered_pairs=route['gathered'],
+                  sw_launches={k: _cu.launches[k] - v
+                               for k, v in _launch0.items()})
         out_rows = []
         if fast_fmt is not None:
             buf, ends, eqs = fast_fmt

@@ -383,14 +383,16 @@ _DB_CACHE: dict = {}
 
 
 def _device_db(db: SeqDB, device: torch.device):
-    """The reference tokens and offsets on ``device``; one db is held."""
+    """The reference tokens and offsets on ``device``; one db is held, on
+    each device that asked for it (the multi-db shards' devices)."""
     key = (id(db), str(device))
     with _CACHE_LOCK:
         ent = _DB_CACHE.get(key)
         if ent is None or ent[0]() is not db:
             ent = (weakref.ref(db), _on(db.tokens, device),
                    _on(db.offsets.astype(np.int64), device))
-            _DB_CACHE.clear()
+            for k in [k for k, v in _DB_CACHE.items() if v[0]() is not db]:
+                del _DB_CACHE[k]
             _DB_CACHE[key] = ent
         return ent[1], ent[2]
 

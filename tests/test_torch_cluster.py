@@ -197,8 +197,9 @@ def test_mcl_scipy_and_mesh_branches(monkeypatch):
     assert [len(c) for c in bs] == [10] * 4
     monkeypatch.setenv('SWIFTORTHO_MCL', '')
     monkeypatch.setenv('SWIFTORTHO_MCL_MESH', '1')
-    with pytest.raises(NotImplementedError):
-        port_mcl.mcl_cluster(40, ei, ej, w, max_dense=16, device=CPU)
+    # one local device (the CPU): the mesh branch runs single-device
+    assert port_mcl.mcl_cluster(40, ei, ej, w, max_dense=16,
+                                device=CPU) == bs
 
 
 # -- block-sparse MCL -----------------------------------------------------

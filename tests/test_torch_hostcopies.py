@@ -1,10 +1,19 @@
 """The port's own copies of the JAX package's host modules against the
-originals: one case per copied module or native entry, each run through
-``swiftortho_tpu`` and ``swiftortho_tpu_torch`` on the same seeded numpy
-input, results equal.  One more test builds the port's native library
-from two processes at once.
+originals.
+
+- Behaviour: one case per copied module or native entry, each run through
+  ``swiftortho_tpu`` and ``swiftortho_tpu_torch`` on the same seeded
+  numpy input, results equal.
+- Source: one case per copied file and per copied function.  A copied
+  ``.py`` equals its original by ``ast.dump`` once the module docstrings
+  are removed; a C++ source is byte-equal; a copied function equals its
+  original by the ``ast.dump`` of its node.  ``EXCEPTIONS`` names the few
+  definitions allowed to differ and what each difference is.
+- Builds: the port's native library, and its CUDA kernel library (with a
+  stand-in ``nvcc``), each built from two processes at once.
 """
 
+import ast
 import importlib
 import io
 import os
@@ -294,3 +303,212 @@ print(' '.join(str(int(v)) for k in sorted(r) for v in r[k]))
     left = sorted(p.name for p in (pkg / 'native').iterdir())
     assert 'libswnative.so' in left and 'libswnative.so.hash' in left
     assert not [n for n in left if n.endswith(('.tmp', '.tmp.hash'))]
+
+
+# -- source --------------------------------------------------------------
+
+# Files copied whole: equal to the original up to the module docstring.
+COPIED_FILES = [
+    'constants.py', 'config.py', 'io_fasta.py', 'corpus.py', 'utils.py',
+    'native/__init__.py', 'ops/__init__.py', 'ops/seeds.py', 'ops/index.py',
+    'ops/stats.py', 'search/__init__.py', 'search/candidates.py',
+    'cli/__init__.py', 'cli/_args.py', 'cli/scripts.py',
+    'cluster/__init__.py', 'cluster/fsfdp.py', 'cluster/checkpoint.py',
+    'orth/__init__.py', 'orth/fast.py', 'orth/inference.py',
+    'orth/outofcore.py', 'parallel/__init__.py', 'analysis/__init__.py',
+    'cluster/driver.py',
+] + ['analysis/%s.py' % m for m in (
+    'exttools', 'goterm', 'misc', 'msa', 'operon', 'orth2phy',
+    'pan_genome', 'phylo', 'rbh')]
+
+# Top-level names whose definitions (or imports) may differ, and why.
+EXCEPTIONS = {
+    'utils.py': ({'stage'},
+                 'stage() leaves out the JAX profiler trace'),
+    'native/__init__.py': ({'fcntl', '_build', '_build_locked', 'load'},
+                           'the g++ build runs under a file lock and is '
+                           'published with os.replace'),
+    'cli/_args.py': ({'apply_platform_env'},
+                     'no JAX platform or compile-cache set-up; joins a '
+                     'fleet under SWIFTORTHO_COORD'),
+    'cluster/driver.py': ({'torch', 'find_cluster_stream',
+                           'find_cluster_file'},
+                          'a device argument handed to the engines'),
+}
+
+# Functions copied into modules that are otherwise the port's own.
+COPIED_FUNCTIONS = [
+    ('ops/banded_sw.py', 'postprocess_batch'),
+    ('cluster/mcl_blocksparse.py', '_pair_lists'),
+    ('cluster/apc.py', 'apc_cluster_faithful'),
+    ('cluster/apc.py', '_apclust_ref_py'),
+    ('cluster/components.py', 'cnc_labels'),
+    ('cluster/components.py', 'union_find'),
+    ('cluster/components.py', 'connected_components'),
+    ('parallel/distributed.py', 'rank_query_range'),
+    ('parallel/distributed.py', 'resolve_query_range'),
+    ('ops/device_pack.py', 'DevicePackContext.maybe_select'),
+]
+
+# The routing of DevicePackContext: the statements of __init__ that set
+# the routing attributes, and the table-row build of _table (the device
+# each copy lives on is the port's own).
+PACK_ROUTING = {'stride', 'n_db', '_lens_ok', 'sel', 'row_of', 'fits',
+                'selected', 'ok', 'n_total'}
+
+
+def _tree(pkg, rel):
+    tree = ast.parse((REPO / pkg / rel).read_text())
+    body = tree.body
+    if (body and isinstance(body[0], ast.Expr)
+            and isinstance(body[0].value, ast.Constant)
+            and isinstance(body[0].value.value, str)):
+        tree.body = body[1:]
+    return tree
+
+
+def _defines(node):
+    """The top-level names a statement defines or imports."""
+    if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+        return {node.name}
+    if isinstance(node, (ast.Import, ast.ImportFrom)):
+        return {(a.asname or a.name).split('.')[0] for a in node.names}
+    return set()
+
+
+def _without(tree, names):
+    return ast.dump(ast.Module(
+        body=[n for n in tree.body if not _defines(n) & names],
+        type_ignores=[]))
+
+
+@pytest.mark.parametrize('rel', COPIED_FILES)
+def test_copied_file_source_matches(rel):
+    want, got = _tree(JAX, rel), _tree(PORT, rel)
+    if rel not in EXCEPTIONS:
+        assert ast.dump(got) == ast.dump(want), rel
+        return
+    names, why = EXCEPTIONS[rel]
+    assert ast.dump(got) != ast.dump(want), (rel, 'exception not needed')
+    assert _without(got, names) == _without(want, names), (rel, why)
+    assert names <= set().union(*map(_defines, got.body)), rel
+
+
+@pytest.mark.parametrize('name', sorted(
+    p.name for p in (REPO / JAX / 'native').glob('*.cpp')))
+def test_copied_cpp_source_matches(name):
+    want = (REPO / JAX / 'native' / name).read_bytes()
+    assert (REPO / PORT / 'native' / name).read_bytes() == want
+
+
+def _node(pkg, rel, qualname):
+    body = ast.parse((REPO / pkg / rel).read_text()).body
+    node = None
+    for part in qualname.split('.'):
+        node = next(n for n in body
+                    if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and n.name == part)
+        body = node.body
+    return node
+
+
+@pytest.mark.parametrize('rel,name', COPIED_FUNCTIONS,
+                         ids=[n for _, n in COPIED_FUNCTIONS])
+def test_copied_function_source_matches(rel, name):
+    assert (ast.dump(_node(PORT, rel, name))
+            == ast.dump(_node(JAX, rel, name))), (rel, name)
+
+
+def _pack_routing(pkg):
+    init = _node(pkg, 'ops/device_pack.py', 'DevicePackContext.__init__')
+    kept = []
+    for st in init.body:
+        tgts = st.targets if isinstance(st, ast.Assign) else \
+            [getattr(st, 'target', None)]
+        attrs = {t.attr for t in tgts if isinstance(t, ast.Attribute)}
+        if not attrs or attrs & PACK_ROUTING:
+            kept.append(ast.dump(st))
+    table = _node(pkg, 'ops/device_pack.py', 'DevicePackContext._table')
+    build = next(st for st in table.body if isinstance(st, ast.If))
+    rows = [ast.dump(st) for st in build.body
+            if '_put' not in ast.dump(st) and '_tab_dev' not in ast.dump(st)]
+    return kept, rows
+
+
+def test_device_pack_routing_source_matches():
+    kept, rows = _pack_routing(PORT)
+    assert (kept, rows) == _pack_routing(JAX)
+    assert len(kept) >= 12 and len(rows) >= 4
+
+
+# -- builds --------------------------------------------------------------
+
+_FAKE_NVCC = r'''#!%(python)s
+import os, subprocess, sys, time
+args = sys.argv[1:]
+out = args[args.index('-o') + 1]
+stub = out + '.stub.cpp'
+with open(stub, 'w') as f:
+    f.write('extern "C" {\n'
+            'int swt_banded_sw(void) { return 0; }\n'
+            'int swt_lanes_for(int a, int b) { return 4; }\n'
+            'const char *swt_cuda_error_string(int e) { return "ok"; }\n'
+            '}\n')
+subprocess.run(['g++', '-shared', '-fPIC', '-o', out, stub], check=True)
+os.remove(stub)
+for k in range(%(lines)d):
+    # a long report, written slowly: a reader racing the writer would
+    # see it cut short
+    sys.stderr.write("ptxas info    : Used %%d registers, spill %%d\n"
+                     %% (k, k))
+    sys.stderr.flush()
+    time.sleep(0.002)
+'''
+
+
+def test_kernel_build_from_two_processes(tmp_path):
+    """Two processes build the port's CUDA kernel library at first use,
+    with a stand-in nvcc on CUDA_HOME that writes a loadable library and
+    a long ptxas report: both load the library and read the whole
+    report, neither opens the published report for writing, and no
+    temporary file is left."""
+    lines = 300
+    cuda = tmp_path / 'cuda' / 'bin'
+    cuda.mkdir(parents=True)
+    nvcc = cuda / 'nvcc'
+    nvcc.write_text(_FAKE_NVCC % {'python': sys.executable, 'lines': lines})
+    nvcc.chmod(0o755)
+    pkg = tmp_path / 'portcopy'
+    shutil.copytree(REPO / PORT / 'csrc', pkg / 'csrc')
+    shutil.copy(REPO / PORT / '_build.py', pkg / '_build.py')
+    (pkg / '__init__.py').write_text('')
+    child = r'''
+import builtins
+from portcopy import _build
+writes, _open = [], builtins.open
+def spy(file, mode='r', *a, **k):
+    if 'w' in mode or 'a' in mode:
+        writes.append(str(file))
+    return _open(file, mode, *a, **k)
+builtins.open = spy
+_build.load_kernels()
+builtins.open = _open
+info = _build.build_info()
+print(info['built'], info['path'] + '.ptxas.txt' in writes,
+      len(info['ptxas']))
+'''
+    env = dict(os.environ, PYTHONPATH=str(tmp_path),
+               CUDA_HOME=str(tmp_path / 'cuda'))
+    procs = [subprocess.Popen([sys.executable, '-c', child], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    # each read the whole report, and none wrote the published report in
+    # place (it is written to a file of its own and renamed)
+    assert [o.split()[1:] for o, _ in outs] == [['False', str(lines)]] * 2
+    left = sorted(p.name for p in (pkg / 'build').iterdir())
+    assert [n for n in left if n.endswith('.so')]
+    assert [n for n in left if n.endswith('.ptxas.txt')]
+    assert not [n for n in left if '.tmp' in n], left

@@ -19,9 +19,10 @@ PKG = pathlib.Path(swiftortho_tpu_torch.__file__).parent
 
 # Runs with jax and the JAX package made unimportable: every port module
 # imports (the device
-# index, candidate and pair-packing modules among them), and the find_hit
-# (default route, then all three device routes), find_orth, find_cluster
-# and run_all CLIs run on a 3-record fasta on the CPU.
+# index, candidate and pair-packing modules and the multi-device ones among
+# them), and the find_hit (default route, all three device routes, then the
+# multi-db route), find_orth, find_cluster and run_all CLIs run on a
+# 3-record fasta on the CPU.
 _NO_JAX = r'''
 import contextlib, importlib, io, os, pkgutil, sys
 sys.modules['jax'] = None
@@ -33,7 +34,9 @@ names = [m.name for m in mods if m.ispkg or os.path.exists(os.path.join(
     m.module_finder.path, m.name.rsplit('.', 1)[1] + '.py'))]
 for name in names:
     importlib.import_module(name)
-for name in ('ops.index_device', 'search.candidates_device', 'ops.device_pack'):
+for name in ('ops.index_device', 'search.candidates_device', 'ops.device_pack',
+             'parallel', 'parallel.mesh', 'parallel.distributed',
+             'search.candidates_multidb'):
     assert pkg.__name__ + '.' + name in names, name
 from swiftortho_tpu_torch.cli import find_cluster, find_hit, find_orth, run_all
 fsa, sc = sys.argv[1], sys.argv[2]
@@ -47,6 +50,11 @@ for k in routes:
 assert find_hit.main(['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
                       '-o', sc]) == 0
 assert open(sc).read() == open(sc + '.dev').read()
+os.environ['SWIFTORTHO_CANDIDATES'] = 'multidb'
+assert find_hit.main(['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
+                      '-o', sc + '.mdb']) == 0
+del os.environ['SWIFTORTHO_CANDIDATES']
+assert open(sc).read() == open(sc + '.mdb').read()
 with open(sc + '.opc', 'w') as f, contextlib.redirect_stdout(f):
     assert find_orth.main(['find_orth', '-i', sc]) == 0
 with open(sc + '.clsr', 'w') as f, contextlib.redirect_stdout(f):

@@ -118,10 +118,58 @@ def test_run_all_resume_skips_fresh_stages(corpus, tmp_path, monkeypatch,
             assert f.read() == first[ext]
 
 
-def test_run_all_fleet_not_ported(corpus, monkeypatch):
-    monkeypatch.setenv('SWIFTORTHO_COORD', 'localhost:1234')
-    with pytest.raises(NotImplementedError, match='SWIFTORTHO_COORD'):
-        port_run_all.main(['run_all', '-i', corpus])
+def run_all_fleet(fsa, flags, nproc=2):
+    """run_all on ``nproc`` ranks joined through the SWIFTORTHO_COORD
+    variables, on the CPU; each child has a timeout."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, SWIFTORTHO_PLATFORM='cpu', PYTHONPATH=repo,
+               SWNATIVE_THREADS='1', SWIFTORTHO_PRODUCERS='1',
+               SWIFTORTHO_COORD='127.0.0.1:%d' % port,
+               SWIFTORTHO_NPROCS=str(nproc), SWIFTORTHO_DIST_TIMEOUT='120')
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'swiftortho_tpu_torch.cli.run_all', '-i', fsa,
+         '-A', 'mcl', '-y', '0'] + flags,
+        env=dict(env, SWIFTORTHO_PROC_ID=str(pid)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pid in range(nproc)]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode(errors='replace')
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0] * nproc, '\n'.join(outs)
+    return outs
+
+
+def test_run_all_fleet_not_ported(corpus, tmp_path):
+    """run_all as a 2-rank fleet, plain and -z fast: the .sc, .opc and
+    .clsr equal the single-process port's.  The plain fleet searches a
+    chunk index that rank 0 built once; only rank 0 runs the later
+    stages."""
+    import glob
+    for name, flags in (('plain', []), ('fast', ['-z', 'fast'])):
+        _, want = run_pipeline(port_run_all.main, corpus,
+                               str(tmp_path / ('one_' + name)), flags)
+        where = tmp_path / ('fleet_' + name)
+        where.mkdir()
+        fsa = str(where / 'c.fsa')
+        shutil.copy(corpus, fsa)
+        outs = run_all_fleet(fsa, flags)
+        for ext in ('sc', 'opc', 'clsr'):
+            with open('%s_results/c.fsa.%s' % (fsa, ext), 'rb') as f:
+                assert f.read() == want[ext], (name, ext)
+        assert want['clsr'].count(b'\n') >= 3
+        assert '"fleet_rank_done"' in outs[1]
+        assert '"fleet_rank_done"' not in outs[0]
+        assert bool(glob.glob('%s_results/c.fsa.fleetdb.*.npz' % fsa)) == \
+            (name == 'plain')
 
 
 def test_scripts_dispatch_to_jax_commands(sc, capsys):

@@ -118,12 +118,23 @@ def test_cli_usage_errors(capsys):
 
 
 @pytest.mark.parametrize('env', [('SWIFTORTHO_CANDIDATES', 'multidb')])
-def test_unported_device_paths_raise(db, env, monkeypatch):
-    # the multi-db shard path is multi-GPU work; the device index and the
-    # device candidate engine are ported (tests/test_torch_device_*.py)
+def test_unported_device_paths_raise(corpus, env, monkeypatch):
+    """The multi-db route on a mesh of the CPU repeated four times, the
+    reference cut into five chunks, the first 40 queries: the JAX
+    package's host rows."""
+    from swiftortho_tpu.search.blastp import blastp_stream
+    from swiftortho_tpu_torch.config import SearchConfig as PortConfig
+    from swiftortho_tpu_torch.io_fasta import SeqDB as PortDB
+    from swiftortho_tpu_torch.parallel.mesh import make_mesh, use_search_mesh
+    jdb = SeqDB.from_path(corpus)
+    want = list(blastp_stream(jdb, jdb, SearchConfig(chunk=32), q_end=40))
+    assert len(want) > 40
     monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError):
-        list(port.blastp_stream(db, db, SearchConfig(), device=CPU))
+    pdb = PortDB.from_path(corpus)
+    with use_search_mesh(make_mesh(n_data=2, n_db=2, devices=[CPU] * 4)):
+        rows = list(port.blastp_stream(pdb, pdb, PortConfig(chunk=32),
+                                       q_end=40, device=CPU))
+    assert rows == want
 
 
 @pytest.fixture(scope='module')
