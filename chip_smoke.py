@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --baseline old.cu   # also time an older source
+    python3 chip_smoke.py --scale 250k        # the 252,608-sequence run
 
 Builds the port's CUDA kernels from csrc/, holds each (full statistics;
 score-only at 4 and at 8 lanes a pair) against the plain PyTorch version
@@ -40,7 +41,27 @@ the JAX package on the CPU):
   step on the CPU (masked tokens byte for byte, the per-query max); seg
   of the 1,034 queries on the card against the CPU; find_cluster -a mcl
   under SWIFTORTHO_MCL_MESH=1 (the .clsr md5) and the sharded
-  block-sparse expansion over the card repeated against one device.
+  block-sparse expansion over the card repeated against one device;
+- the streamed multi-chunk search (``multichunk``): the 41k corpus at
+  ``-c 10000`` (five reference chunks) on the default route, through
+  ``-p makedb`` and ``-D`` with strict streaming (no prefetch), blocks of
+  two waves and a ``-T`` candidate spill that must end empty, and on the
+  three device routes, each writing the JAX package's ``.sc`` for that
+  chunking;
+- the long-pair path (``long_pairs``): proteins of up to 8,857 residues,
+  aligned in 4096-wide tiles: the JAX package's ``.sc``, tiles > 0,
+  launches at width 4096;
+- the scale pipeline (``scale``): ``tools.run_scale`` in a child process
+  on the 102,681-sequence corpus (3 chunks, nc = 2^24): its ``.sc``,
+  ``.opc`` and ``.clsr`` equal to the JAX package's ``tools/run_scale.py``
+  with the same arguments, ``find_orth -L y`` byte-equal, every group
+  family-pure; ``kernel_time_paths`` then times the kernel at the launch
+  shapes of that run and of the long tiles (one round of turns: the
+  plain version takes ~20 s a call at width 4096).
+
+``--scale 250k`` runs, after the build, kernel parity and timing phases,
+only the 252,608-sequence ``run_scale`` (6 chunks) against the JAX
+script's digests, and times the kernel at its launch shapes.
 
 ``--baseline`` names an earlier source of ``csrc/banded_sw.cu`` (its C
 entry ``swt_banded_sw`` must take today's arguments, as PR 1's does,
@@ -53,7 +74,8 @@ C++ oracle, the corpus and the pan-genome code are the port's own copies.
 Each phase prints one JSON line: device, build,
 kernel_parity, kernel_time, search_parity, device_search_parity, search,
 device_components, search_device, orth, cluster_parity, cluster_scale,
-multichip, pipeline.  Any failed check exits nonzero before the
+multichip, pipeline, multichunk, long_pairs, scale, kernel_time_paths.
+Any failed check exits nonzero before the
 result lines; every child process has a timeout.  The last three lines are the card's
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line,
 the kernels JSON object and {"ok": true, "device": {...}}.
@@ -121,6 +143,47 @@ PARITY_WIDE = (8192, 400)
 TIME_SHAPES = {'full': ((4096, 500), (12941, 400)),
                'score_only': ((4096, 500), (216394, 400))}
 BAND = 32
+# multichunk: the 41k corpus at -c 10000 (five reference chunks) and the
+# JAX package's find_hit .sc for it; makedb / -D with strict streaming in
+# blocks of two waves and a candidate spill, then the three device routes
+MULTICHUNK = 10000
+BIG_C10000_SC_MD5 = '51a2379dce9c095f2fe1497428b13daa'
+MULTICHUNK_CHUNKS = 5
+# long_pairs: 125 proteins of 1,000-9,000 residues (64 of them >= 4096):
+# the 4096-wide tile path; the JAX package's find_hit .sc (defaults)
+LONG = dict(n_taxa=5, n_families=24, seed=5, min_len=1000, max_len=9000)
+LONG_FSA_MD5 = '16223dccc8107867876a458d89787c19'
+LONG_SC_MD5 = 'a4ce2486c106caa13604275cb99c337c'
+# scale: tools.run_scale in a child process, against the JAX package's
+# tools/run_scale.py with the same arguments (its workdir's md5s and
+# counts); 102k runs in the default call, 250k behind --scale 250k
+SCALE = {
+    '102k': {'args': ['--taxa', '25', '--families', '4000', '--max-len',
+                      '400', '--seed', '7', '--orth-out-of-core'],
+             'md5': {'fsa': 'e2ab91216e45768779b9d819565393a0',
+                     'sc': 'a12ed29301bbb5499eeff383d77f7215',
+                     'opc': 'a6d9b2b810f834bc6bc85d79729ff5be',
+                     'clsr': 'b94c30436c0dd96f0b6d556602663f0c'},
+             'counts': {'sequences': 102681, 'chunks': 3,
+                        'sc_rows': 2639533, 'opc_edges': 1084890,
+                        'clsr_groups': 4012, 'genes_clustered': 99908},
+             'timeout': 900},
+    '250k': {'args': ['--taxa', '60', '--families', '4100', '--max-len',
+                      '400', '--seed', '7', '--route', 'default'],
+             'md5': {'fsa': 'b98cd535179cb3fb9c9228bddb1692df',
+                     'sc': '4a0f342d294c67b0ce46d8e3e5ea2a51',
+                     'opc': '849b0dc126fed687429937433fe1e174',
+                     'clsr': 'e3b31bb947ea4c9328f5496c265ae41d'},
+             'counts': {'sequences': 252608, 'chunks': 6,
+                        'sc_rows': 15541329, 'opc_edges': 6555026,
+                        'clsr_groups': 4139, 'genes_clustered': 247572},
+             'timeout': 2700,
+             # BASELINE.md:489-490, the JAX package's published run
+             'published': {'sc_rows': 15.54e6, 'opc_edges': 6.56e6,
+                           'clsr_groups': 4139,
+                           'genes_clustered': 247572,
+                           'sequences': 252608}},
+}
 # the least integer operations per band cell of the recurrence, the
 # count the bound uses; PERF.md lists them term by term
 INT_OPS_PER_CELL = {'full': 24, 'score_only': 10}
@@ -339,12 +402,14 @@ def build_baseline(path):
     return lib, _build._ptxas_lines(r.stdout + r.stderr)
 
 
-def phase_kernel_time(np, torch, baseline=None):
-    """Each variant at its TIME_SHAPES: the kernel, the plain version and,
-    with ``baseline``, an earlier source of the kernel, in turns (plain,
-    kernel, baseline, baseline, kernel, plain, twice), with CUDA events;
-    beside the bound.  The first calls (warm-up) must agree field for
-    field.  Returns each variant's row at its main-path shape."""
+def phase_kernel_time(np, torch, baseline=None, shapes=None,
+                      phase='kernel_time', rounds=2):
+    """Each variant at its TIME_SHAPES (or ``shapes``, in the same form):
+    the kernel, the plain version and, with ``baseline``, an earlier
+    source of the kernel, in turns (plain, kernel, baseline, baseline,
+    kernel, plain, ``rounds`` times), with CUDA events; beside the bound.
+    The first calls (warm-up) must agree field for field.  Returns each
+    variant's row at its last shape (TIME_SHAPES: the main path's)."""
     from swiftortho_tpu_torch import _build
     from swiftortho_tpu_torch.constants import GAP_EXTEND, GAP_OPEN
     from swiftortho_tpu_torch.ops import banded_sw as bsw
@@ -376,13 +441,13 @@ def phase_kernel_time(np, torch, baseline=None):
         return start.elapsed_time(stop) / n
 
     rows, main = [], {}
-    for var, shapes in TIME_SHAPES.items():
+    for var, var_shapes in (shapes or TIME_SHAPES).items():
         so = var == 'score_only'
-        for B, L in shapes:
+        for B, L in var_shapes:
             rng = np.random.default_rng(0)
             AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
-            t0 = AA[rng.integers(0, 20, (B, L + 12))]
-            t1 = AA[rng.integers(0, 20, (B, L + 12))]
+            t0 = AA[rng.integers(0, 20, (B, L + 12), dtype=np.uint8)]
+            t1 = AA[rng.integers(0, 20, (B, L + 12), dtype=np.uint8)]
             lens = np.full(B, L, np.int32)
             dev = [torch.from_numpy(x).cuda() for x in (t0, t1, lens, lens)]
             cells = B * L * BAND
@@ -408,7 +473,7 @@ def phase_kernel_time(np, torch, baseline=None):
                      'plain']
             order = [k for k in order if k in fns]
             samples = {k: [] for k in fns}
-            for _ in range(2):
+            for _ in range(rounds):
                 for k in order:
                     fn, n = fns[k]
                     samples[k].append(timed(fn, n))
@@ -430,7 +495,7 @@ def phase_kernel_time(np, torch, baseline=None):
             main[var] = row                 # the last shape: the main path's
     extra = {'baseline': baseline, 'baseline_ptxas': base_ptxas} \
         if base is not None else {}
-    emit('kernel_time', shapes=rows, timer='cuda events', rates=rates,
+    emit(phase, shapes=rows, timer='cuda events', rates=rates,
          int_ops_per_cell=INT_OPS_PER_CELL, **extra)
     return main
 
@@ -473,10 +538,10 @@ def events_of(stderr_text):
             stderr_text.splitlines() if ln.startswith('[swiftortho] {')]
 
 
-def run_find_hit(fsa, out, platform, **env):
+def run_find_hit(fsa, out, platform, *flags, **env):
     from swiftortho_tpu_torch.cli.find_hit import main
     return run_cli(main, ['find_hit', '-p', 'blastp', '-i', fsa, '-d', fsa,
-                          '-o', out], platform, **env)
+                          '-o', out, *flags], platform, **env)
 
 
 DEVICE_ROUTES = {'SWIFTORTHO_INDEX': 'device',
@@ -602,6 +667,7 @@ def phase_search(tmp, torch):
     wall, events = run_find_hit(fsa, out, 'cuda')
     launches = dict(cu.launches)
     aligned = dict(cu.pairs)
+    shapes = {k: dict(v) for k, v in cu.shapes.items()}
     peak = torch.cuda.max_memory_allocated()
     got = md5(out)
     check(got == BIG_SC_MD5, '.sc md5 %s != the JAX package\'s %s'
@@ -621,7 +687,7 @@ def phase_search(tmp, torch):
                waves=len(waves),
                candidate_pairs=sum(w['pairs'] for w in waves),
                pairs_aligned=aligned, launches=launches,
-               peak_device_bytes=peak)
+               launch_shapes=shapes, peak_device_bytes=peak)
     emit('search', **res)
     return res
 
@@ -713,6 +779,7 @@ def phase_search_device(tmp, torch, default):
     wall, events = run_find_hit(fsa, out, 'cuda', **DEVICE_ROUTES)
     launches = dict(cu.launches)
     aligned = dict(cu.pairs)
+    shapes = {k: dict(v) for k, v in cu.shapes.items()}
     packed_calls = dict(device_pack.PROF['calls'])
     peak = torch.cuda.max_memory_allocated()
     got = md5(out)
@@ -739,12 +806,13 @@ def phase_search_device(tmp, torch, default):
                pack_s=round(device_pack.PROF['pack_s'], 4),
                packed_align_s=round(device_pack.PROF['align_s'], 4),
                stages=stage_split(events), pairs_aligned=aligned,
-               launches=launches, peak_device_bytes=peak)
+               launches=launches, launch_shapes=shapes,
+               peak_device_bytes=peak)
     emit('search_device', **res,
          default_route={k: default[k] for k in
                         ('wall_s', 'index_s', 'phaseA_s', 'align_s',
                          'policy_s', 'launches', 'peak_device_bytes')})
-    return launches
+    return launches, shapes
 
 
 def profiled(torch, fn):
@@ -1371,11 +1439,254 @@ def phase_pipeline(pipe):
                     'cluster_parity, cluster_scale, multichip')
 
 
+def search_summary(events, wall):
+    """Chunks, waves, blocks, residency and stage seconds of one search
+    from its log events."""
+    waves = [e for e in events if e['stage'] == 'search_wave']
+    pa = [e for e in events if e['stage'] == 'search_phaseA']
+    check(waves and len(pa) == 1, 'search logged no waves or no phase A')
+    pa = pa[0]
+    packed, gathered = route_pairs(events)
+    return {'wall_s': round(wall, 3), 'chunks': pa['chunks'],
+            'waves': len(waves), 'blocks': pa.get('blocks'),
+            'max_resident_indexes': pa.get('max_resident_indexes'),
+            'prefetch': pa.get('prefetch'), 'index_s': pa['idx_wait_s'],
+            'phaseA_s': pa['cand_s'],
+            'align_s': round(sum(w['align1_s'] for w in waves), 3),
+            'policy_s': round(sum(w['policy_s'] for w in waves), 3),
+            'packed_pairs': packed, 'gathered_pairs': gathered,
+            'long_pairs': sum(w['long_pairs'] for w in waves),
+            'long_tiles': sum(w['long_tiles'] for w in waves)}
+
+
+def add_launches(total, shapes, cu):
+    """Add the wrapper's counts since its last reset to ``total`` and
+    ``shapes``."""
+    for var in total:
+        total[var] += cu.launches[var]
+        for key, (n, pairs, bmax) in cu.shapes[var].items():
+            row = shapes[var].setdefault(key, [0, 0, 0])
+            row[0] += n
+            row[1] += pairs
+            row[2] = max(row[2], bmax)
+
+
+def phase_multichunk(tmp, torch):
+    """The 41k corpus at -c 10000 (five reference chunks): the default
+    route; makedb then -D with strict streaming (no prefetch), blocks of
+    two waves and a candidate spill (-T) that must end empty; and the
+    three device routes.  Every .sc equals the JAX package's for -c
+    10000.  Returns (the launches of the three searches, their shapes)."""
+    import shutil
+    from swiftortho_tpu_torch.cli.find_hit import main as find_hit
+    from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+    from swiftortho_tpu_torch.ops import device_pack
+    fsa = os.path.join(tmp, 'big.fsa')
+    check(md5(fsa) == BIG_FSA_MD5, 'big.fsa missing or changed')
+    mdir = os.path.join(tmp, 'multichunk')
+    os.makedirs(mdir)
+    flags = ('-c', str(MULTICHUNK))
+    launches = {'full': 0, 'score_only': 0}
+    shapes = {'full': {}, 'score_only': {}}
+    t_phase = time.time()
+    runs = []
+
+    def search(name, *extra, **env):
+        out = os.path.join(mdir, name + '.sc')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cu.reset_counters()
+        device_pack.reset_prof()
+        wall, events = run_find_hit(fsa, out, 'cuda', *flags, *extra, **env)
+        ran = dict(cu.launches)
+        add_launches(launches, shapes, cu)
+        got = md5(out)
+        check(got == BIG_C10000_SC_MD5, 'multichunk %s: .sc md5 %s != the '
+              'JAX package\'s %s' % (name, got, BIG_C10000_SC_MD5))
+        check(ran['full'] > 0 and ran['score_only'] > 0,
+              'multichunk %s launched %s' % (name, ran))
+        row = {'run': name, 'env': env, 'flags': list(flags + extra),
+               'sc_md5': got, **search_summary(events, wall),
+               'launches': ran, 'pairs_aligned': dict(cu.pairs),
+               'peak_device_bytes': torch.cuda.max_memory_allocated()}
+        check(row['chunks'] == MULTICHUNK_CHUNKS, 'multichunk %s: %d chunks'
+              % (name, row['chunks']))
+        runs.append(row)
+        return row, events
+
+    search('default')
+
+    db = os.path.join(mdir, 'db.fsa')
+    shutil.copy(fsa, db)
+    makedb_s, _ = run_cli(find_hit, ['find_hit', '-p', 'makedb', '-i', db,
+                                     *flags], 'cuda')
+    spill = os.path.join(mdir, 'spill')
+    row, _ = search('makedb_D_strict_block2_spill', '-D', db, '-T', spill,
+                    SWIFTORTHO_PREFETCH_INDEX='0', SWIFTORTHO_WAVE_BLOCK='2')
+    check(row['max_resident_indexes'] == 1 and not row['prefetch'],
+          'strict streaming held %s indexes (prefetch %s)'
+          % (row['max_resident_indexes'], row['prefetch']))
+    check(row['blocks'] == -(-row['waves'] // 2), 'blocks of two waves: '
+          '%s blocks for %s waves' % (row['blocks'], row['waves']))
+    left = os.listdir(spill)
+    check(left == [], 'the spill directory is not empty: %s' % left[:5])
+    row['makedb_s'] = round(makedb_s, 3)
+    row['index_files'] = len([f for f in os.listdir(mdir)
+                              if f.startswith('db.fsa.')])
+    for f in os.listdir(mdir):
+        if f.startswith('db.fsa.'):
+            os.remove(os.path.join(mdir, f))
+
+    row, events = search('device_routes', **DEVICE_ROUTES)
+    fb = [e for e in events if e['stage'] in FALLBACKS]
+    check(not fb, 'multichunk device routes fell back: %s' % fb[:3])
+    check(row['packed_pairs'] > 0 and row['gathered_pairs'] == 0
+          and dict(device_pack.PROF['calls']) == row['launches'],
+          'multichunk device routes: packed %d, gathered %d, launches %s, '
+          'through the packed route %s'
+          % (row['packed_pairs'], row['gathered_pairs'], row['launches'],
+             dict(device_pack.PROF['calls'])))
+    row['stages'] = stage_split(events)
+    emit('multichunk', sequences=sum(1 for ln in open(fsa)
+                                     if ln.startswith('>')),
+         chunk=MULTICHUNK, sc_md5=BIG_C10000_SC_MD5, runs=runs,
+         launches=launches, launch_shapes=shapes,
+         seconds=round(time.time() - t_phase, 3))
+    return launches, shapes
+
+
+def wide_shapes(shapes, width=4096):
+    """The launch shapes with a padded width >= ``width``."""
+    return {var: {k: v for k, v in by.items()
+                  if max(int(x) for x in k.split('x')) >= width}
+            for var, by in shapes.items()}
+
+
+def phase_long_pairs(tmp, torch):
+    """find_hit on the long-protein corpus: the JAX package's .sc, pairs
+    through the 4096-wide tile path, and kernel launches at width 4096.
+    Returns (its launches, their shapes)."""
+    from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
+    fsa, n = write_corpus_checked(tmp, 'long.fsa', LONG, LONG_FSA_MD5)
+    out = os.path.join(tmp, 'long.sc')
+    cu.reset_counters()
+    wall, events = run_find_hit(fsa, out, 'cuda')
+    launches = {'full': 0, 'score_only': 0}
+    shapes = {'full': {}, 'score_only': {}}
+    add_launches(launches, shapes, cu)
+    got = md5(out)
+    check(got == LONG_SC_MD5, 'long pairs: .sc md5 %s != the JAX '
+          'package\'s %s' % (got, LONG_SC_MD5))
+    res = search_summary(events, wall)
+    check(res['long_pairs'] > 0 and res['long_tiles'] > res['long_pairs'],
+          'no pair took the tile path: %d pairs, %d tiles'
+          % (res['long_pairs'], res['long_tiles']))
+    wide = wide_shapes(shapes)
+    check(wide['full'], 'no launch at a width >= 4096: %s' % shapes)
+    with open(out) as f:
+        rows = f.read().splitlines()
+    past = sum(max(int(x) for x in ln.split('\t')[6:10]) > 4096
+               for ln in rows)
+    lengths = [len(seq) for seq in
+               ''.join(ln if not ln.startswith('>') else '\n'
+                       for ln in open(fsa).read().splitlines()).split()]
+    emit('long_pairs', sequences=n, longest=max(lengths),
+         at_least_4096=sum(x >= 4096 for x in lengths), rows=len(rows),
+         rows_past_4096=past, sc_md5=got, **res, launches=launches,
+         launch_shapes=shapes, wide_launches=wide)
+    return launches, shapes
+
+
+SCALE_CHILD = r"""
+import sys
+sys.modules['jax'] = None
+sys.modules['swiftortho_tpu'] = None
+from swiftortho_tpu_torch.tools.run_scale import main
+raise SystemExit(main(sys.argv[1:]))
+"""
+
+
+def phase_scale(tmp, size):
+    """tools.run_scale in a child process on the card: its .sc, .opc and
+    .clsr against the JAX package's run_scale.py with the same arguments,
+    -L y byte-equal, every group family-pure, the counts of the JAX run.
+    Returns its result line."""
+    spec = SCALE[size]
+    wdir = os.path.join(tmp, 'scale_' + size)
+    os.makedirs(wdir)
+    out_path, err_path = (os.path.join(wdir, 'run_scale.' + x)
+                          for x in ('out', 'err'))
+    env = dict(os.environ, SWIFTORTHO_PLATFORM='cuda')
+    t0 = time.time()
+    with open(out_path, 'w') as out, open(err_path, 'w') as err:
+        proc = subprocess.Popen(
+            [sys.executable, '-c', SCALE_CHILD, '--workdir', wdir]
+            + spec['args'], stdout=out, stderr=err, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            proc.wait(timeout=spec['timeout'])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.time() - t0
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    with open(err_path) as f:
+        err = f.read()
+    check(proc.returncode == 0 and lines,
+          'run_scale %s exited %s: %s' % (size, proc.returncode,
+                                          err[-3000:]))
+    res = json.loads(lines[-1])
+    md5s = {ext: md5(os.path.join(wdir, 'c.' + ext))
+            for ext in ('fsa', 'sc', 'opc', 'clsr')}
+    bad = {ext: got for ext, got in md5s.items() if got != spec['md5'][ext]}
+    check(not bad, 'run_scale %s: md5s differ from the JAX package\'s '
+          'run_scale.py: %s' % (size, bad))
+    bad = {k: res[k] for k, v in spec['counts'].items() if res[k] != v}
+    check(not bad, 'run_scale %s: counts %s, the JAX run\'s %s'
+          % (size, bad, spec['counts']))
+    check(res['pure_groups'] == res['clsr_groups'] > 0,
+          'run_scale %s: %d of %d groups family-pure'
+          % (size, res['pure_groups'], res['clsr_groups']))
+    if '--orth-out-of-core' in spec['args']:
+        check(res.get('orth_out_of_core_equal') is True,
+              'run_scale %s: find_orth -L y not checked' % size)
+    kl = res['kernel']['launches']
+    check(kl['full'] > 0 and kl['score_only'] > 0,
+          'run_scale %s launched %s' % (size, kl))
+    events = events_of(err)
+    waves = [e for e in events if e['stage'] == 'search_wave']
+    check(waves and all(sum(w['sw_launches'].values()) > 0 for w in waves),
+          'run_scale %s: a wave without SW launches' % size)
+    emit('scale', size=size, args=spec['args'], md5=md5s, result=res,
+         published=spec.get('published'), process_s=round(wall, 3))
+    return res
+
+
+def path_shapes(*shape_sets):
+    """Per variant, the (B, L) of the most-used launch shape of each
+    set (B = its pairs over its launches, L = the padded width less 12,
+    as TIME_SHAPES reads it)."""
+    out = {'full': [], 'score_only': []}
+    for shapes in shape_sets:
+        for var, by in shapes.items():
+            if by:
+                key, (n, pairs, _) = max(by.items(),
+                                         key=lambda kv: kv[1][1])
+                width = max(int(x) for x in key.split('x'))
+                out[var].append((-(-pairs // n), width - 12))
+    return {k: tuple(v) for k, v in out.items() if v}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--baseline', metavar='CU',
                     help='an earlier csrc/banded_sw.cu to time beside it')
+    ap.add_argument('--scale', choices=('250k',),
+                    help='run only the 252,608-sequence run_scale (after '
+                         'the build, kernel parity and timing phases)')
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -1385,25 +1696,53 @@ def main(argv=None):
     max_err = phase_kernel_parity(np, torch)
     times = phase_kernel_time(np, torch, args.baseline)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
-        pipe = start_pipeline(tmp)
-        try:
-            phase_search_parity(tmp)
-            phase_device_search_parity(tmp, torch)
-            default = phase_search(tmp, torch)
-            launches = default['launches']
-            phase_device_components(tmp, np, torch)
-            packed = phase_search_device(tmp, torch, default)
-            opc = phase_orth(tmp)
-            phase_cluster_parity(tmp, opc, torch)
-            phase_cluster_scale(np, torch)
-            multi = phase_multichip(tmp, opc, np, torch)
-            phase_pipeline(pipe)
-        finally:
-            if pipe['proc'].poll() is None:
-                pipe['proc'].kill()
-                pipe['proc'].wait()
-            for f in pipe['files']:
-                f.close()
+        if args.scale:
+            res = phase_scale(tmp, args.scale)
+            launches = res['kernel']['launches']
+            by_route = {'scale_' + args.scale: launches}
+            shapes_by_route = {'scale_' + args.scale:
+                               res['kernel']['shapes']}
+            phase_kernel_time(np, torch, shapes=path_shapes(
+                res['kernel']['shapes']), phase='kernel_time_paths',
+                rounds=1)
+        else:
+            pipe = start_pipeline(tmp)
+            try:
+                phase_search_parity(tmp)
+                phase_device_search_parity(tmp, torch)
+                default = phase_search(tmp, torch)
+                launches = default['launches']
+                phase_device_components(tmp, np, torch)
+                packed, packed_shapes = phase_search_device(tmp, torch,
+                                                            default)
+                opc = phase_orth(tmp)
+                phase_cluster_parity(tmp, opc, torch)
+                phase_cluster_scale(np, torch)
+                multi = phase_multichip(tmp, opc, np, torch)
+                phase_pipeline(pipe)
+            finally:
+                if pipe['proc'].poll() is None:
+                    pipe['proc'].kill()
+                    pipe['proc'].wait()
+                for f in pipe['files']:
+                    f.close()
+            chunked, chunked_shapes = phase_multichunk(tmp, torch)
+            long_launches, long_shapes = phase_long_pairs(tmp, torch)
+            scale = phase_scale(tmp, '102k')
+            # the long tiles are full-statistics launches at width 4096
+            phase_kernel_time(np, torch, shapes=path_shapes(
+                scale['kernel']['shapes'],
+                {'full': wide_shapes(long_shapes)['full']}),
+                phase='kernel_time_paths', rounds=1)
+            by_route = {'host_gather': launches, 'device_pack': packed,
+                        'fleet': multi['fleet'], 'mesh': multi['mesh'],
+                        'multichunk': chunked, 'long_tiles': long_launches,
+                        'scale': scale['kernel']['launches']}
+            shapes_by_route = {'host_gather': default['launch_shapes'],
+                               'device_pack': packed_shapes,
+                               'multichunk': chunked_shapes,
+                               'long_tiles': long_shapes,
+                               'scale': scale['kernel']['shapes']}
     check(not [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'swiftortho_tpu')
                and sys.modules[m] is not None],
@@ -1411,10 +1750,9 @@ def main(argv=None):
     kernels = [{'name': 'banded_sw_' + var, 'route': 'cuda',
                 'source': SOURCE, 'replaces': REPLACES,
                 'launches': launches[var],
-                'launches_by_route': {'host_gather': launches[var],
-                                      'device_pack': packed[var],
-                                      'fleet': multi['fleet'][var],
-                                      'mesh': multi['mesh'][var]},
+                'launches_by_route': {r: n[var] for r, n in by_route.items()},
+                'launch_shapes_by_route': {r: sh[var] for r, sh in
+                                           shapes_by_route.items()},
                 'max_abs_err': max_err[var],
                 'ms': times[var]['ms'], 'plain_ms': times[var]['plain_ms'],
                 'bound_ms': times[var]['bound_ms'],

@@ -7,7 +7,9 @@ on the current stream of the tensors' card, with that card made current
 for the launch (a mesh shard may live on another card than the current
 one), or raises: there is no fallback to the plain version.  ``launches`` counts the launches per variant (``full``,
 ``score_only``) so a run can show that its path went through the kernel;
-``pairs`` counts the pairs those launches aligned.
+``pairs`` counts the pairs those launches aligned, and ``shapes`` the
+launch shapes: per variant, ``'<pad0>x<pad1>'`` -> [launches, pairs,
+largest B].
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .banded_sw import FIELDS, check_batch, scoring_tables
 
 launches = {'full': 0, 'score_only': 0}
 pairs = {'full': 0, 'score_only': 0}
+shapes: dict = {'full': {}, 'score_only': {}}
 _count_lock = threading.Lock()
 
 
@@ -30,6 +33,7 @@ def reset_counters():
         for k in launches:
             launches[k] = 0
             pairs[k] = 0
+            shapes[k].clear()
 
 
 def sw_align_batch_cuda(tok0: torch.Tensor, tok1: torch.Tensor,
@@ -70,4 +74,8 @@ def sw_align_batch_cuda(tok0: torch.Tensor, tok1: torch.Tensor,
     with _count_lock:
         launches[variant] += 1
         pairs[variant] += B
+        row = shapes[variant].setdefault('%dx%d' % (L0, L1), [0, 0, 0])
+        row[0] += 1
+        row[1] += B
+        row[2] = max(row[2], B)
     return out

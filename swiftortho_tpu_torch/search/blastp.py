@@ -43,7 +43,9 @@ byte-identical to it.  What differs is the schedule and the device:
   over the mesh devices.  Both write the same rows;
 - each ``search_wave`` event counts the banded SW kernel launches of its
   wave (``sw_launches``, per variant; the counter of
-  ``ops.banded_sw_cuda``, exact at the default pipeline width 1).
+  ``ops.banded_sw_cuda``, exact at the default pipeline width 1), and
+  the pairs and 4096-wide tiles of the long-pair path (``long_pairs``,
+  ``long_tiles``).
 
 Named deviation (tie order): the reference ranks candidates and final m8
 rows with seeded UNSTABLE quicksorts (fsearch.py qsort :189-327, final sort
@@ -915,7 +917,8 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         long_rows = _align_long_tiles(
             toks, lens, ref, np.flatnonzero(is_long), qrow, subj, bq, bs,
             cfg.align_buckets, device)
-        route['gathered'] += sum(len(t) for t in long_rows.values())
+        long_tiles = sum(len(t) for t in long_rows.values())
+        route['gathered'] += long_tiles
 
         def policy_rows(sel, r):
             """Run the reference's sequential accept/stop loop; returns
@@ -1115,6 +1118,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                   esc_queries=esc_queries, esc_rounds=esc_rounds,
                   rung0=rung0, packed_pairs=route['packed'],
                   gathered_pairs=route['gathered'],
+                  long_pairs=len(long_rows), long_tiles=long_tiles,
                   sw_launches={k: _cu.launches[k] - v
                                for k, v in _launch0.items()})
         out_rows = []

@@ -19,8 +19,8 @@ PKG = pathlib.Path(swiftortho_tpu_torch.__file__).parent
 
 # Runs with jax and the JAX package made unimportable: every port module
 # imports (the device
-# index, candidate and pair-packing modules and the multi-device ones among
-# them), and the find_hit (default route, all three device routes, then the
+# index, candidate and pair-packing modules, the multi-device ones and the
+# tools among them), and the find_hit (default route, all three device routes, then the
 # multi-db route), find_orth, find_cluster and run_all CLIs run on a
 # 3-record fasta on the CPU.
 _NO_JAX = r'''
@@ -36,7 +36,8 @@ for name in names:
     importlib.import_module(name)
 for name in ('ops.index_device', 'search.candidates_device', 'ops.device_pack',
              'parallel', 'parallel.mesh', 'parallel.distributed',
-             'search.candidates_multidb'):
+             'search.candidates_multidb', 'tools.make_corpus',
+             'tools.run_scale'):
     assert pkg.__name__ + '.' + name in names, name
 from swiftortho_tpu_torch.cli import find_cluster, find_hit, find_orth, run_all
 fsa, sc = sys.argv[1], sys.argv[2]

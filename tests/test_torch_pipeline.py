@@ -1,6 +1,7 @@
 """The port's pipeline CLIs (find_orth, find_cluster, run_all, scripts)
-against the JAX package's, on the CPU (SWIFTORTHO_PLATFORM=cpu) and the
-tests/test_cli.py corpus: output bytes equal.
+and tools (make_corpus, run_scale) against the JAX package's, on the CPU
+(SWIFTORTHO_PLATFORM=cpu) and the tests/test_cli.py corpus: output bytes
+equal.
 
 The JAX package is imported inside the tests that use it.
 """
@@ -53,7 +54,8 @@ def stdout_of(main, argv, capsys):
     return capsys.readouterr().out
 
 
-@pytest.mark.parametrize('flags', [[], ['-y', '50', '-n', 'bsr']])
+@pytest.mark.parametrize('flags', [[], ['-y', '50', '-n', 'bsr'],
+                                   ['-L', 'y']])
 def test_find_orth_matches_jax_cli(sc, flags, capsys):
     from swiftortho_tpu.cli import find_orth as jax_orth
     argv = ['find_orth', '-i', sc] + flags
@@ -148,7 +150,7 @@ def run_all_fleet(fsa, flags, nproc=2):
     return outs
 
 
-def test_run_all_fleet_not_ported(corpus, tmp_path):
+def test_run_all_fleet_matches_one_process(corpus, tmp_path):
     """run_all as a 2-rank fleet, plain and -z fast: the .sc, .opc and
     .clsr equal the single-process port's.  The plain fleet searches a
     chunk index that rank 0 built once; only rank 0 runs the later
@@ -186,3 +188,55 @@ def test_scripts_dispatch_to_jax_commands(sc, capsys):
 def test_usage_errors(main, capsys):
     assert main(['prog']) == 1
     assert 'Usage' in capsys.readouterr().out
+
+
+def test_make_corpus_tool_matches_jax(tmp_path):
+    """tools/make_corpus: the fasta and its .truth equal the JAX
+    script's."""
+    import subprocess
+    import sys
+    from swiftortho_tpu_torch.tools import make_corpus as port_tool
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want, got = str(tmp_path / 'j.fsa'), str(tmp_path / 'p.fsa')
+    r = subprocess.run([sys.executable, os.path.join(repo, 'tools',
+                                                     'make_corpus.py'),
+                        want, '3', '20', '5'], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert port_tool.main(['make_corpus', got, '3', '20', '5']) == 0
+    for ext in ('', '.truth'):
+        with open(want + ext, 'rb') as a, open(got + ext, 'rb') as b:
+            assert b.read() == a.read(), ext
+
+
+def test_run_scale_matches_jax(tmp_path, capsys):
+    """tools/run_scale on a tiny corpus (3 taxa, 30 families): the
+    workdir's .sc, .opc and .clsr equal the JAX script's, -L y is
+    byte-equal, and the JSON line adds up."""
+    import json
+    import subprocess
+    import sys
+    from swiftortho_tpu_torch.tools import run_scale as port_tool
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = ['--taxa', '3', '--families', '30', '--max-len', '200']
+    jdir, pdir = str(tmp_path / 'j'), str(tmp_path / 'p')
+    r = subprocess.run([sys.executable, os.path.join(repo, 'tools',
+                                                     'run_scale.py'),
+                        '--workdir', jdir] + args, capture_output=True,
+                       text=True, timeout=600,
+                       env=dict(os.environ, JAX_PLATFORMS='cpu',
+                                SWIFTORTHO_JAX_CACHE='0'))
+    assert r.returncode == 0, r.stderr[-2000:]
+    capsys.readouterr()
+    assert port_tool.main(['--workdir', pdir, '--orth-out-of-core']
+                          + args) == 0
+    res = json.loads(capsys.readouterr().out.splitlines()[-1])
+    for ext in ('fsa', 'sc', 'opc', 'clsr'):
+        with open(os.path.join(jdir, 'c.' + ext), 'rb') as a, \
+                open(os.path.join(pdir, 'c.' + ext), 'rb') as b:
+            assert b.read() == a.read(), ext
+    assert res['orth_out_of_core_equal'] and res['device'] == 'cpu'
+    assert res['chunks'] == 1 and res['sc_rows'] > 0
+    assert 'purity: %d/%d groups single-family' % (
+        res['pure_groups'], res['clsr_groups']) in r.stdout
+    assert res['pure_groups'] == res['clsr_groups'] > 0

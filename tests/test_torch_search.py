@@ -118,7 +118,7 @@ def test_cli_usage_errors(capsys):
 
 
 @pytest.mark.parametrize('env', [('SWIFTORTHO_CANDIDATES', 'multidb')])
-def test_unported_device_paths_raise(corpus, env, monkeypatch):
+def test_multidb_mesh_rows_match_jax(corpus, env, monkeypatch):
     """The multi-db route on a mesh of the CPU repeated four times, the
     reference cut into five chunks, the first 40 queries: the JAX
     package's host rows."""
