@@ -28,7 +28,11 @@ the JAX package on the CPU):
   mcl_cluster, and a 20,480-node component through the block-sparse
   engine, twice, against the scipy oracle;
 - run_all -A mcl on the 1,034-sequence corpus, in a child process that
-  runs beside the search and clustering phases: .sc .opc .clsr .pan md5s;
+  runs beside the search, clustering, multichunk and scale phases:
+  .sc .opc .clsr .pan md5s;
+  with SWIFTORTHO_TRACE_DIR set, its orth and cluster stages each write a
+  torch.profiler trace, and the cluster trace must name a CUDA kernel
+  (its top device operations by time are reported);
 - the multi-device and multi-process paths (``multichip``): a 2-rank
   find_hit fleet on the 41k corpus (two processes joined through
   SWIFTORTHO_COORD on the one card; the merged .sc md5, each rank's half
@@ -57,7 +61,19 @@ the JAX package on the CPU):
   with the same arguments, ``find_orth -L y`` byte-equal, every group
   family-pure; ``kernel_time_paths`` then times the kernel at the launch
   shapes of that run and of the long tiles (one round of turns: the
-  plain version takes ~20 s a call at width 4096).
+  plain version takes ~20 s a call at width 4096);
+- the port's tools (``tools``): ``tools.scaling_bench`` at 1, 2 and 4
+  ranks on the card (every fleet's .sc the JAX find_hit CLI's),
+  ``tools.profile_phaseA`` at its defaults (the JAX tool's candidates per
+  (wave, chunk); its corpus and index are written by a child that runs
+  beside the clustering phases), ``tools.bench_device_cand`` (device and
+  host candidates equal at each cap from 2^20 to 2^23) and
+  ``tools/example_run.sh`` (in a child beside every earlier phase, on
+  the card by default: rc 0 and the JAX CLI's ref.sc).
+
+``kernel_time`` also times bench.py's host baseline (the C++ banded SW
+on one core, 48 pairs at L = 500) and reports ``host_cells_per_s`` and
+``vs_baseline`` on the full-statistics row at B = 4096, L = 500.
 
 ``--scale 250k`` runs, after the build, kernel parity and timing phases,
 only the 252,608-sequence ``run_scale`` (6 chunks) against the JAX
@@ -74,7 +90,8 @@ C++ oracle, the corpus and the pan-genome code are the port's own copies.
 Each phase prints one JSON line: device, build,
 kernel_parity, kernel_time, search_parity, device_search_parity, search,
 device_components, search_device, orth, cluster_parity, cluster_scale,
-multichip, pipeline, multichunk, long_pairs, scale, kernel_time_paths.
+multichip, pipeline, multichunk, long_pairs, scale, kernel_time_paths,
+tools.
 Any failed check exits nonzero before the
 result lines; every child process has a timeout.  The last three lines are the card's
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line,
@@ -187,6 +204,22 @@ SCALE = {
 # the least integer operations per band cell of the recurrence, the
 # count the bound uses; PERF.md lists them term by term
 INT_OPS_PER_CELL = {'full': 24, 'score_only': 10}
+# bench.py's host baseline: the C++ kernel on one core, 48 pairs of the
+# kernel_time shape (B = 4096, L = 500, full statistics)
+HOST_BASELINE_PAIRS, HOST_BASELINE_SHAPE = 48, (4096, 500)
+# tools: the port's tools/ against the JAX package's, pinned here from
+# the JAX package on the CPU.  scaling_bench's corpus (--seqs 2000) and
+# the find_hit CLI's .sc on it (-e 1e-5 -M 262144); profile_phaseA's
+# corpus at its defaults (102,844 sequences, 3 chunks at nc = 2^24) and
+# the JAX tool's candidates per (wave, chunk); example_run.sh's ref.sc
+# (the JAX find_hit CLI with the script's flags)
+SCALING_PROCS = (1, 2, 4)
+SCALING_FSA_MD5 = '4e684fe531d410af7d27f8ef92bbee61'
+SCALING_SC_MD5 = '3a26146b9111f5dfb4557e019edd6d52'
+PHASEA_FSA_MD5 = 'a488f408e5b4c3fe59a57600500c462e'
+PHASEA_CANDS = [[4945027, 5036340, 331739], [4960367, 5053483, 334898]]
+EXAMPLE_SC_MD5 = '4591a54f692e6975a57025d43d0836de'
+DEVICE_CAND_CAPS = [1 << k for k in (20, 21, 22, 23)]
 
 
 def emit(phase, **fields):
@@ -246,9 +279,15 @@ KERNELS = [('full', 4), ('score_only', 4), ('score_only', 8)]
 
 
 def phase_build():
-    from swiftortho_tpu_torch import _build
+    import threading
+    from swiftortho_tpu_torch import _build, native
     t0 = time.time()
+    # the host library (g++, the C++ oracle and host kernels) builds
+    # beside nvcc; a failure there raises again at its first use
+    host = threading.Thread(target=native.load, daemon=True)
+    host.start()
     _build.load_kernels()
+    host.join()
     info = _build.build_info()
     kernels = ptxas_summary(info['ptxas'])
     check(sorted((k['variant'], k['lanes']) for k in kernels)
@@ -402,14 +441,58 @@ def build_baseline(path):
     return lib, _build._ptxas_lines(r.stdout + r.stderr)
 
 
+HOST_CHILD = r"""
+import json, sys, time
+sys.modules['jax'] = None
+sys.modules['swiftortho_tpu'] = None
+import numpy as np
+from swiftortho_tpu_torch.native import sw_align_batch_native
+n, L = int(sys.argv[1]), int(sys.argv[2])
+rng = np.random.default_rng(0)
+AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
+t0 = AA[rng.integers(0, 20, (n, L + 12))]
+t1 = AA[rng.integers(0, 20, (n, L + 12))]
+lens = np.full(n, L, np.int32)
+sw_align_batch_native(t0, t1, lens, lens)          # warm (builds the .so)
+tt = time.time()
+r = sw_align_batch_native(t0, t1, lens, lens)
+dt = time.time() - tt
+print(json.dumps({'cells_per_s': n * L * 32 / dt, 'seconds': dt,
+                  'chk': int(r['score'].sum())}))
+"""
+
+
+def host_baseline():
+    """bench.py's host baseline (its _cpu_worker): the port's C++ banded
+    SW (``native.sw_align_batch_native``, full statistics) on one core
+    (SWNATIVE_THREADS=1, in a child so that the count takes effect) over
+    HOST_BASELINE_PAIRS pairs of width L; returns its result line."""
+    r = subprocess.run(
+        [sys.executable, '-c', HOST_CHILD, str(HOST_BASELINE_PAIRS),
+         str(HOST_BASELINE_SHAPE[1])], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, SWNATIVE_THREADS='1'),
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(r.returncode == 0 and r.stdout.strip(),
+          'host baseline child exited %s: %s' % (r.returncode,
+                                                  r.stderr[-2000:]))
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    check(res['cells_per_s'] > 0, 'host baseline measured %s' % res)
+    return dict(res, pairs=HOST_BASELINE_PAIRS, threads=1)
+
+
 def phase_kernel_time(np, torch, baseline=None, shapes=None,
-                      phase='kernel_time', rounds=2):
+                      phase='kernel_time', rounds=2, plain_once=False):
     """Each variant at its TIME_SHAPES (or ``shapes``, in the same form):
     the kernel, the plain version and, with ``baseline``, an earlier
     source of the kernel, in turns (plain, kernel, baseline, baseline,
     kernel, plain, ``rounds`` times), with CUDA events; beside the bound.
-    The first calls (warm-up) must agree field for field.  Returns each
-    variant's row at its last shape (TIME_SHAPES: the main path's)."""
+    With ``plain_once`` the plain version is timed on its warm-up call
+    only (it takes seconds a call at the wide path shapes).
+    The first calls (warm-up) must agree field for field.  At TIME_SHAPES
+    the full-statistics row at bench.py's shape also carries the host
+    baseline (``host_cells_per_s``) and ``vs_baseline``, the kernel's
+    cells/s over it, as bench.py reports them.  Returns each variant's
+    row at its last shape (TIME_SHAPES: the main path's)."""
     from swiftortho_tpu_torch import _build
     from swiftortho_tpu_torch.constants import GAP_EXTEND, GAP_OPEN
     from swiftortho_tpu_torch.ops import banded_sw as bsw
@@ -417,6 +500,7 @@ def phase_kernel_time(np, torch, baseline=None, shapes=None,
     rates = card_rates(torch)
     lib = _build.load_kernels()
     base, base_ptxas = build_baseline(baseline) if baseline else (None, None)
+    host = host_baseline() if shapes is None else None
     table = bsw.scoring_tables(torch.device('cuda'))['codes']
 
     def run_base(dev, so):
@@ -459,7 +543,11 @@ def phase_kernel_time(np, torch, baseline=None, shapes=None,
             if base is not None:
                 fns['baseline'] = (lambda: run_base(dev, so), reps)
             # warm-up (build, caches, clocks), and the outputs compared
+            plain_ev = [torch.cuda.Event(enable_timing=True)
+                        for _ in range(2)]
+            plain_ev[0].record()
             plain = fns['plain'][0]()
+            plain_ev[1].record()
             plain = torch.stack([plain[k] for k in bsw.FIELDS]).to(
                 torch.int32)
             got = {k: fn() for k, (fn, _) in fns.items() if k != 'plain'}
@@ -471,8 +559,11 @@ def phase_kernel_time(np, torch, baseline=None, shapes=None,
                       '%s %dx%d: %s != plain' % (var, B, L, k))
             order = ['plain', 'kernel', 'baseline', 'baseline', 'kernel',
                      'plain']
-            order = [k for k in order if k in fns]
+            order = [k for k in order if k in fns
+                     and not (plain_once and k == 'plain')]
             samples = {k: [] for k in fns}
+            if plain_once:
+                samples['plain'].append(plain_ev[0].elapsed_time(plain_ev[1]))
             for _ in range(rounds):
                 for k in order:
                     fn, n = fns[k]
@@ -491,10 +582,16 @@ def phase_kernel_time(np, torch, baseline=None, shapes=None,
             if base is not None:
                 row['baseline_ms'] = ms['baseline']
                 row['baseline_cells_per_s'] = cells / (ms['baseline'] / 1e3)
+            if host is not None and not so \
+                    and (B, L) == HOST_BASELINE_SHAPE:
+                row['host_cells_per_s'] = host['cells_per_s']
+                row['vs_baseline'] = row['cells_per_s'] / host['cells_per_s']
             rows.append(row)
             main[var] = row                 # the last shape: the main path's
     extra = {'baseline': baseline, 'baseline_ptxas': base_ptxas} \
         if base is not None else {}
+    if host is not None:
+        extra['host_baseline'] = host
     emit(phase, shapes=rows, timer='cuda events', rates=rates,
          int_ops_per_cell=INT_OPS_PER_CELL, **extra)
     return main
@@ -1357,17 +1454,43 @@ print(json.dumps({'rc': rc, 'seconds': time.time() - t0,
 
 def start_pipeline(tmp):
     """run_all -A mcl on SMALL in a child process (its stage 5 is host
-    Python that would otherwise hold the script for minutes)."""
+    Python that would otherwise hold the script for minutes), with
+    SWIFTORTHO_TRACE_DIR set: its orth and cluster stages write
+    torch.profiler traces."""
     pdir = os.path.join(tmp, 'pipeline')
     os.makedirs(pdir)
     fsa, n = write_corpus_checked(pdir, 'small.fsa', SMALL, SMALL_FSA_MD5)
-    out = open(os.path.join(pdir, 'stdout.txt'), 'w')
-    err = open(os.path.join(pdir, 'stderr.txt'), 'w')
-    proc = subprocess.Popen(
-        [sys.executable, '-c', PIPELINE_CHILD, fsa], stdout=out,
-        stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
-    return {'proc': proc, 'fsa': fsa, 'n': n, 'files': (out, err),
-            't0': time.time()}
+    trace = os.path.join(pdir, 'trace')
+    child = start_child(tmp, 'pipeline', [sys.executable, '-c',
+                                          PIPELINE_CHILD, fsa],
+                        SWIFTORTHO_TRACE_DIR=trace)
+    return dict(child, fsa=fsa, n=n, trace=trace)
+
+
+def trace_summary(path, top=8):
+    """One stage's Chrome trace (the ``*.pt.trace.json`` files under
+    ``path``): its event count, CUDA kernel launches and the device
+    operations (kernels, copies, sets) by summed duration."""
+    import glob
+    files = glob.glob(os.path.join(path, '*.pt.trace.json'))
+    check(files, 'no trace file under %s' % path)
+    by_name, n_events, kernels = {}, 0, 0
+    for f in files:
+        with open(f) as fh:
+            events = json.load(fh)['traceEvents']
+        n_events += len(events)
+        for e in events:
+            if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+                kernels += e['cat'] == 'kernel'
+                by_name[e['name']] = by_name.get(e['name'], 0.0) + e['dur']
+    total_us = sum(by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {'files': len(files), 'bytes': sum(os.path.getsize(f)
+                                              for f in files),
+            'events': n_events, 'kernel_launches': kernels,
+            'device_ms': total_us / 1e3,
+            'top': [{'op': k[:90], 'ms': us / 1e3,
+                     'share': us / total_us} for k, us in rows]}
 
 
 def check_pan(pan_path, clsr_path, fsa):
@@ -1420,6 +1543,13 @@ def phase_pipeline(pipe):
     check(not bad, 'run_all outputs differ from the JAX package\'s: %s'
           % bad)
     pan = check_pan(base + 'pan', base + 'clsr', pipe['fsa'])
+    gaps = [e for e in events_of(err) if e['stage'] == 'trace_unavailable']
+    check(not gaps, 'run_all: a stage trace did not start: %s' % gaps)
+    traces = {st: trace_summary(os.path.join(pipe['trace'], st))
+              for st in ('orth', 'cluster')}
+    check(traces['cluster']['kernel_launches'] > 0,
+          'the cluster stage\'s trace names no CUDA kernel: %s'
+          % traces['cluster'])
     stages = {ln.rsplit(':', 1)[0]: float(ln.rsplit(':', 1)[1])
               for ln in lines[:-1] if ln.endswith(tuple('0123456789'))
               and ' time:' in ln}
@@ -1427,7 +1557,7 @@ def phase_pipeline(pipe):
     tools = {t: find_tool(t) is not None
              for t in ('famsa', 'mafft', 'muscle', 'trimal', 'fasttree',
                        'FastTree')}
-    emit('pipeline', sequences=pipe['n'], md5=md5s, pan=pan,
+    emit('pipeline', sequences=pipe['n'], md5=md5s, pan=pan, traces=traces,
          nwk_md5=md5(nwk) if os.path.exists(nwk) else None,
          nwk_md5_jax_without_tools=PIPE_NWK_MD5_NO_TOOLS,
          tools_on_path=tools, launches=res['launches'], pairs=res['pairs'],
@@ -1436,7 +1566,8 @@ def phase_pipeline(pipe):
          waited_s=round(waited, 3),
          ran_beside='search_parity, device_search_parity, search, '
                     'device_components, search_device, orth, '
-                    'cluster_parity, cluster_scale, multichip')
+                    'cluster_parity, cluster_scale, multichip, multichunk, '
+                    'long_pairs, scale, kernel_time_paths')
 
 
 def search_summary(events, wall):
@@ -1664,6 +1795,139 @@ def phase_scale(tmp, size):
     return res
 
 
+def start_child(tmp, name, argv, **env):
+    """``argv`` in a child process from the repository root, its output
+    into files under ``tmp/name`` (also its TMPDIR)."""
+    wdir = os.path.join(tmp, name)
+    os.makedirs(wdir, exist_ok=True)
+    files = tuple(open(os.path.join(wdir, 'child.' + x), 'w')
+                  for x in ('out', 'err'))
+    proc = subprocess.Popen(
+        argv, stdout=files[0], stderr=files[1],
+        env=dict(os.environ, TMPDIR=wdir, **env),
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return {'name': name, 'proc': proc, 'files': files, 't0': time.time()}
+
+
+def wait_child(child, timeout):
+    """Wait for a start_child process (``timeout`` seconds from its
+    start); it must exit 0.  Returns (its standard output lines, its
+    seconds)."""
+    proc = child['proc']
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.time() - child['t0'])))
+    finally:
+        stop_child(child)
+    with open(child['files'][0].name) as f:
+        lines = f.read().splitlines()
+    with open(child['files'][1].name) as f:
+        err = f.read()
+    check(proc.returncode == 0 and lines, '%s exited %s: %s'
+          % (child['name'], proc.returncode,
+             (err or '\n'.join(lines))[-3000:]))
+    return lines, time.time() - child['t0']
+
+
+def stop_child(child):
+    if child['proc'].poll() is None:
+        child['proc'].kill()
+        child['proc'].wait()
+    for f in child['files']:
+        f.close()
+
+
+def start_example_run(tmp):
+    """tools/example_run.sh in a child beside the search phases, with no
+    SWIFTORTHO_PLATFORM: the script runs on the card by default."""
+    path = os.pathsep.join([os.path.dirname(sys.executable),
+                            os.environ.get('PATH', '')])
+    return start_child(tmp, 'example_run', ['bash', os.path.join(
+        'swiftortho_tpu_torch', 'tools', 'example_run.sh')], PATH=path)
+
+
+def start_phasea_prep(tmp):
+    """profile_phaseA --waves 0 in a child: writes the 102,844-sequence
+    corpus and its index cache, which the timed run in ``tools`` reuses."""
+    return start_child(tmp, 'phaseA_prep', [
+        sys.executable, '-m', 'swiftortho_tpu_torch.tools.profile_phaseA',
+        '--waves', '0', '--workdir', os.path.join(tmp, 'phaseA')])
+
+
+def phase_tools(tmp, torch, example, prep):
+    """The port's tools against the JAX package's: scaling_bench at 1, 2
+    and 4 ranks on the card (the .sc of each fleet equal to the JAX CLI's,
+    kernel launches in every rank), profile_phaseA at its defaults (the
+    JAX tool's candidate counts), bench_device_cand (parity at each cap)
+    and example_run.sh (rc 0, the JAX CLI's ref.sc).  Returns the kernel
+    launches of the scaling fleets."""
+    from swiftortho_tpu_torch.tools.bench_device_cand import bench
+    t_phase = time.time()
+    seconds = {}
+
+    child = start_child(tmp, 'scaling', [
+        sys.executable, '-m', 'swiftortho_tpu_torch.tools.scaling_bench',
+        '--procs', ','.join(map(str, SCALING_PROCS))],
+        SWIFTORTHO_PLATFORM='cuda')
+    lines, seconds['scaling_bench'] = wait_child(child, 900)
+    scaling = json.loads(lines[-1])
+    check([r['procs'] for r in scaling['results']] == list(SCALING_PROCS),
+          'scaling_bench ran %s' % scaling['results'])
+    check(md5(scaling['fsa']) == SCALING_FSA_MD5,
+          'scaling_bench corpus md5 %s != %s' % (md5(scaling['fsa']),
+                                                 SCALING_FSA_MD5))
+    check(scaling['sc_md5'] == SCALING_SC_MD5, 'scaling_bench .sc md5 %s '
+          '!= the JAX find_hit CLI\'s %s' % (scaling['sc_md5'],
+                                             SCALING_SC_MD5))
+    launches = {'full': 0, 'score_only': 0}
+    for r in scaling['results']:
+        check(len(r['ranks']) == r['procs'] and r['cards'] >= 1,
+              'scaling_bench %d ranks: %s' % (r['procs'], r))
+        for rank in r['ranks']:
+            check(rank['launches']['full'] > 0
+                  and rank['launches']['score_only'] > 0,
+                  'scaling_bench %d ranks: rank %d launched %s'
+                  % (r['procs'], rank['rank'], rank['launches']))
+            for k in launches:
+                launches[k] += rank['launches'][k]
+
+    lines, _ = wait_child(prep, 600)
+    prep = json.loads(lines[-1])
+    wdir = os.path.join(tmp, 'phaseA')
+    check(md5(os.path.join(wdir, 'c.fsa')) == PHASEA_FSA_MD5,
+          'profile_phaseA corpus md5 differs from the JAX tool\'s')
+    child = start_child(tmp, 'phaseA', [
+        sys.executable, '-m', 'swiftortho_tpu_torch.tools.profile_phaseA',
+        '--workdir', wdir])
+    lines, seconds['profile_phaseA'] = wait_child(child, 600)
+    phase_a = json.loads(lines[-1])
+    got = [w['cands'] for w in phase_a['waves']]
+    check(phase_a['index_cached'] and got == PHASEA_CANDS,
+          'profile_phaseA candidates per (wave, chunk) %s != the JAX '
+          'tool\'s %s' % (got, PHASEA_CANDS))
+    phase_a['prep'] = {k: prep[k] for k in ('corpus_s', 'index_s')}
+
+    t0 = time.time()
+    device_cand = bench(caps=DEVICE_CAND_CAPS, device=torch.device('cuda'),
+                        out=io.StringIO())
+    seconds['bench_device_cand'] = time.time() - t0
+    check([c['cap'] for c in device_cand['caps']] == DEVICE_CAND_CAPS
+          and all(c['parity'] for c in device_cand['caps']),
+          'bench_device_cand: %s' % device_cand['caps'])
+
+    lines, example_s = wait_child(example, 1050)
+    sc = [ln.split()[-1] for ln in lines if ln.startswith('ref.sc md5 ')]
+    check(sc == [EXAMPLE_SC_MD5] and lines[-1] == 'example_run: all stages OK',
+          'example_run.sh: ref.sc md5 %s != the JAX CLI\'s %s, last line %r'
+          % (sc, EXAMPLE_SC_MD5, lines[-1]))
+    emit('tools', scaling_bench=scaling, profile_phaseA=phase_a,
+         bench_device_cand=device_cand,
+         example_run={'rc': 0, 'ref_sc_md5': sc[0], 'seconds': example_s,
+                      'ran_beside': 'every phase before tools'},
+         scaling_launches=launches, seconds=seconds,
+         phase_s=time.time() - t_phase)
+    return launches
+
+
 def path_shapes(*shape_sets):
     """Per variant, the (B, L) of the most-used launch shape of each
     set (B = its pairs over its launches, L = the padded width less 12,
@@ -1704,9 +1968,10 @@ def main(argv=None):
                                res['kernel']['shapes']}
             phase_kernel_time(np, torch, shapes=path_shapes(
                 res['kernel']['shapes']), phase='kernel_time_paths',
-                rounds=1)
+                rounds=1, plain_once=True)
         else:
             pipe = start_pipeline(tmp)
+            children = [pipe, start_example_run(tmp)]
             try:
                 phase_search_parity(tmp)
                 phase_device_search_parity(tmp, torch)
@@ -1715,29 +1980,29 @@ def main(argv=None):
                 phase_device_components(tmp, np, torch)
                 packed, packed_shapes = phase_search_device(tmp, torch,
                                                             default)
+                children.append(start_phasea_prep(tmp))
                 opc = phase_orth(tmp)
                 phase_cluster_parity(tmp, opc, torch)
                 phase_cluster_scale(np, torch)
                 multi = phase_multichip(tmp, opc, np, torch)
+                chunked, chunked_shapes = phase_multichunk(tmp, torch)
+                long_launches, long_shapes = phase_long_pairs(tmp, torch)
+                scale = phase_scale(tmp, '102k')
+                # the long tiles are full-statistics launches at width 4096
+                phase_kernel_time(np, torch, shapes=path_shapes(
+                    scale['kernel']['shapes'],
+                    {'full': wide_shapes(long_shapes)['full']}),
+                    phase='kernel_time_paths', rounds=1, plain_once=True)
                 phase_pipeline(pipe)
+                tools = phase_tools(tmp, torch, *children[1:])
             finally:
-                if pipe['proc'].poll() is None:
-                    pipe['proc'].kill()
-                    pipe['proc'].wait()
-                for f in pipe['files']:
-                    f.close()
-            chunked, chunked_shapes = phase_multichunk(tmp, torch)
-            long_launches, long_shapes = phase_long_pairs(tmp, torch)
-            scale = phase_scale(tmp, '102k')
-            # the long tiles are full-statistics launches at width 4096
-            phase_kernel_time(np, torch, shapes=path_shapes(
-                scale['kernel']['shapes'],
-                {'full': wide_shapes(long_shapes)['full']}),
-                phase='kernel_time_paths', rounds=1)
+                for child in children:
+                    stop_child(child)
             by_route = {'host_gather': launches, 'device_pack': packed,
                         'fleet': multi['fleet'], 'mesh': multi['mesh'],
                         'multichunk': chunked, 'long_tiles': long_launches,
-                        'scale': scale['kernel']['launches']}
+                        'scale': scale['kernel']['launches'],
+                        'scaling_bench': tools}
             shapes_by_route = {'host_gather': default['launch_shapes'],
                                'device_pack': packed_shapes,
                                'multichunk': chunked_shapes,

@@ -324,7 +324,8 @@ COPIED_FILES = [
 # Top-level names whose definitions (or imports) may differ, and why.
 EXCEPTIONS = {
     'utils.py': ({'stage'},
-                 'stage() leaves out the JAX profiler trace'),
+                 'stage() opens a torch.profiler trace in place of the '
+                 'JAX one'),
     'native/__init__.py': ({'fcntl', '_build', '_build_locked', 'load'},
                            'the g++ build runs under a file lock and is '
                            'published with os.replace'),
