@@ -5,12 +5,12 @@
     python3 chip_smoke.py --baseline old.cu   # also time an older source
     python3 chip_smoke.py --scale 250k        # the 252,608-sequence run
 
-Builds the port's CUDA kernels from csrc/, holds each (full statistics;
-score-only at 4 and at 8 lanes a pair) against the plain PyTorch version
-and the port's C++ host oracle, times both variants at two shapes beside
-the kernel's bound, and drives the port's paths on the card, each
-checked against the JAX package's digests (pinned below, computed with
-the JAX package on the CPU):
+Builds the port's CUDA kernels from csrc/, holds the banded SW (full
+statistics; score-only at 4 and at 8 lanes a pair) against the plain
+PyTorch version and the port's C++ host oracle, times both variants at
+two shapes beside the kernel's bound, and drives the port's paths on the
+card, each checked against the JAX package's digests (pinned below,
+computed with the JAX package on the CPU):
 
 - the find_hit all-vs-all search at the size of the 10-genome
   configuration (41,168 sequences): the m8 table byte for byte, on the
@@ -21,6 +21,11 @@ the JAX package on the CPU):
   together, with a partial pair table and with a posting cap that cuts
   stage 2 into row blocks; and the device index and candidate engine on
   the 41k corpus against the host build and engine, array for array;
+- the x-drop walk kernel (``walk_parity``) against the engine's plain
+  walk (``walk_chunked``) on the card, bit for bit: both walks of the
+  first stage-2 row block of that 41k wave and edge points, then both
+  timed beside the kernel's bound; the device routes must launch it
+  twice a row block;
 - find_orth on that table, and find_cluster on the orthology graph it
   writes (mcl on cuda and cpu, textbook apc and sap on cuda, twice each,
   and the host's faithful apc): output md5s;
@@ -87,15 +92,16 @@ kernel's at every timed shape, and times it in the same turns.
 
 Imports no JAX and nothing of the JAX package (``swiftortho_tpu``): the
 C++ oracle, the corpus and the pan-genome code are the port's own copies.
-Each phase prints one JSON line: device, build,
-kernel_parity, kernel_time, search_parity, device_search_parity, search,
-device_components, search_device, orth, cluster_parity, cluster_scale,
-multichip, pipeline, multichunk, long_pairs, scale, kernel_time_paths,
-tools.
-Any failed check exits nonzero before the
-result lines; every child process has a timeout.  The last three lines are the card's
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line,
-the kernels JSON object and {"ok": true, "device": {...}}.
+Each phase prints one JSON line: device, build, kernel_parity,
+kernel_time, search_parity, device_search_parity, search,
+device_components, walk_parity, search_device, orth, cluster_parity,
+cluster_scale, multichip, pipeline, multichunk, long_pairs, scale,
+kernel_time_paths, tools.  Any failed check exits nonzero before the
+result lines; every child process has a timeout.  The last three lines
+are the card's ``nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`` line, the kernels JSON object (the banded SW's
+two variants and, but with ``--scale``, whose path does not walk on the
+card, the x-drop walk) and {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -114,6 +120,16 @@ sys.modules['swiftortho_tpu'] = None    # ... and without the JAX package
 T_START = time.time()
 SOURCE = 'swiftortho_tpu_torch/csrc/banded_sw.cu'
 REPLACES = 'swiftortho_tpu/ops/banded_sw_pallas.py:383'
+# the x-drop walk kernel replaces plain JAX (no Pallas kernel): the
+# device candidate engine's chunked walk
+WALK_SOURCE = 'swiftortho_tpu_torch/csrc/xdrop_walk.cu'
+WALK_REPLACES = 'swiftortho_tpu/search/candidates_device.py:169'
+# the least integer operations of one walk step (bounds check 4, two
+# token offsets 2, score index 1, running sum 1, best compare and
+# select 2, x-drop compare 2) and the bytes of one point (eight int32
+# and one int64 read, two int32 written); PERF.md lists them
+WALK_OPS_PER_STEP = 12
+WALK_POINT_BYTES = 48
 # the 10-genome configuration of BASELINE.md and its m8 digest from the
 # JAX package (host path, SearchConfig defaults = CLI defaults)
 BIG = dict(n_taxa=10, n_families=4000, seed=42)
@@ -254,8 +270,9 @@ def phase_device(torch):
 
 
 def ptxas_summary(lines):
-    """Registers, shared memory and spill bytes per banded SW kernel
-    (statistics on/off, lanes per pair) from the ptxas report lines."""
+    """Registers, shared memory and spill bytes per kernel (banded SW:
+    statistics on/off, lanes per pair; the x-drop walk: one thread a
+    point) from the ptxas report lines."""
     import re
     out, cur = [], None
     for ln in lines:
@@ -263,6 +280,9 @@ def ptxas_summary(lines):
         if 'Compiling entry' in ln and m:
             cur = {'variant': 'full' if m.group(1) == '1' else 'score_only',
                    'lanes': int(m.group(2))}
+            out.append(cur)
+        elif 'Compiling entry' in ln and 'xdrop_walk_kernel' in ln:
+            cur = {'variant': 'xdrop_walk', 'lanes': 1}
             out.append(cur)
         elif cur is not None:
             for key, pat in (('registers', r'Used (\d+) registers'),
@@ -290,9 +310,10 @@ def phase_build():
     host.join()
     info = _build.build_info()
     kernels = ptxas_summary(info['ptxas'])
+    built = KERNELS + [('xdrop_walk', 1)]
     check(sorted((k['variant'], k['lanes']) for k in kernels)
-          == sorted(KERNELS) and all('registers' in k for k in kernels),
-          'ptxas report lacks the kernels %s: %s' % (KERNELS, info['ptxas']))
+          == sorted(built) and all('registers' in k for k in kernels),
+          'ptxas report lacks the kernels %s: %s' % (built, info['ptxas']))
     emit('build', seconds=round(time.time() - t0, 3), built=info['built'],
          nvcc_seconds=info['seconds'], command=info['command'],
          kernels=kernels, ptxas=info['ptxas'])
@@ -406,6 +427,19 @@ def card_rates(torch):
             'int_ops_per_s': sms * 64 * mhz * 1e6, 'bytes_per_s': 3.35e12}
 
 
+def timed_ms(torch, fn, n):
+    """Milliseconds a call of ``fn``, over ``n`` calls between two CUDA
+    events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def sw_bound(rates, B, pad0, pad1, cells, var):
     """The least time for one call: the larger of the integer operations
     (INT_OPS_PER_CELL per band cell) over the ALU rate and the bytes (the
@@ -514,16 +548,6 @@ def phase_kernel_time(np, torch, baseline=None, shapes=None,
         check(rc == 0, 'baseline launch failed: CUDA error %d' % rc)
         return out
 
-    def timed(fn, n):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n
-
     rows, main = [], {}
     for var, var_shapes in (shapes or TIME_SHAPES).items():
         so = var == 'score_only'
@@ -567,7 +591,7 @@ def phase_kernel_time(np, torch, baseline=None, shapes=None,
             for _ in range(rounds):
                 for k in order:
                     fn, n = fns[k]
-                    samples[k].append(timed(fn, n))
+                    samples[k].append(timed_ms(torch, fn, n))
             ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
             bound_ms, bound_by = sw_bound(rates, B, L + 12, L + 12, cells,
                                           var)
@@ -703,6 +727,7 @@ def phase_device_search_parity(tmp, torch):
     partial pair table (hot-set pick) and a posting cap that cuts stage 2
     into >= 4 row blocks; every .sc md5 equal to the JAX package's."""
     from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
     from swiftortho_tpu_torch.ops.device_pack import DevicePackContext
     fsa = os.path.join(tmp, 'small.fsa')
     check(md5(fsa) == SMALL_FSA_MD5, 'small.fsa missing or changed')
@@ -715,6 +740,7 @@ def phase_device_search_parity(tmp, torch):
                                       str(len(db) // 2 * stride)})]
     rows, postings = [], None
     t_phase = time.time()
+    xw.reset_counters()
     for name, env in runs + [('cand_row_blocks', None)]:
         if env is None:
             # cap: at most a fifth of the wave's postings (>= 5 blocks),
@@ -750,8 +776,12 @@ def phase_device_search_parity(tmp, torch):
                   % (env['SWIFTORTHO_DEVICE_CAND_CAP'], chunked))
             row['blocks'] = [e['blocks'] for e in chunked]
         rows.append(row)
+    check(xw.launches > 0, 'the device candidate routes launched no '
+          'x-drop walk kernel')
     emit('device_search_parity', sequences=len(db), runs=rows,
+         xdrop_walk_launches=xw.launches,
          seconds=round(time.time() - t_phase, 3))
+    return xw.launches
 
 
 def phase_search(tmp, torch):
@@ -789,18 +819,40 @@ def phase_search(tmp, torch):
     return res
 
 
+@contextlib.contextmanager
+def recording_walks(cd, store):
+    """Record in ``store``, by step, the arguments of the engine's first
+    walk in each direction (the first row block's right and left walks),
+    cloned, while the walks run as they would."""
+    real = cd.walk
+
+    def walk(*args):
+        step = args[10]
+        if step not in store:
+            store[step] = tuple(a.clone() if hasattr(a, 'clone') else a
+                                for a in args)
+        return real(*args)
+    cd.walk = walk
+    try:
+        yield
+    finally:
+        cd.walk = real
+
+
 def phase_device_components(tmp, np, torch):
     """On the 41k corpus: the cuda index of the first chunk against the
     host build_index, and the device engine on the first 4,096-query wave
-    against the host engine (twice: cold, then warm), with stage times."""
+    against the host engine (twice: cold, then warm), with stage times
+    and the x-drop walk kernel's launches.  Returns the arguments of the
+    cold run's first right and left walks, by step, and those launches."""
     from swiftortho_tpu_torch.config import SearchConfig
     from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
     from swiftortho_tpu_torch.ops.index import build_index
     from swiftortho_tpu_torch.ops.index_device import build_index_device
+    from swiftortho_tpu_torch.search import candidates_device as cd
     from swiftortho_tpu_torch.search.blastp import _mask_queries
     from swiftortho_tpu_torch.search.candidates import generate_candidates
-    from swiftortho_tpu_torch.search.candidates_device import \
-        generate_candidates_device
     cuda = torch.device('cuda')
     fsa = os.path.join(tmp, 'big.fsa')
     check(md5(fsa) == BIG_FSA_MD5, 'big.fsa missing or changed')
@@ -833,14 +885,19 @@ def phase_device_components(tmp, np, torch):
     t0 = time.time()
     want = generate_candidates(toks, lens, db, host, alphabets, cfg.seeds)
     host_cand_s = time.time() - t0
-    runs = []
+    runs, walks = [], {}
+    xw.reset_counters()
     for rep in range(2):
         buf = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.time()
-        with contextlib.redirect_stderr(buf):
-            got = generate_candidates_device(toks, lens, db, dev, alphabets,
-                                             cfg.seeds, device=cuda)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(contextlib.redirect_stderr(buf))
+            if rep == 0:
+                stack.enter_context(recording_walks(cd, walks))
+            got = cd.generate_candidates_device(toks, lens, db, dev,
+                                                alphabets, cfg.seeds,
+                                                device=cuda)
         secs = time.time() - t0
         for f in ('qrow', 'subject', 'score', 'band_q', 'band_s'):
             check(np.array_equal(getattr(got, f), getattr(want, f)),
@@ -851,6 +908,11 @@ def phase_device_components(tmp, np, torch):
         runs.append({'seconds': round(secs, 4),
                      **{k: v for k, v in ev[0].items()
                         if k not in ('ts', 'stage', 'device')}})
+    walk_launches = {'launches': xw.launches, 'points': xw.points}
+    blocks = sum(r['blocks'] for r in runs)
+    check(walk_launches['launches'] == 2 * blocks,
+          'x-drop walk kernel launched %s times for %d row blocks (two '
+          'walks a block)' % (walk_launches, blocks))
     emit('device_components', sequences=len(db), index_T=idx_ev['T'],
          postings=idx_ev['postings'], threshold=dev.threshold,
          index_equal=True, host_index_s=round(host_index_s, 4),
@@ -858,23 +920,194 @@ def phase_device_components(tmp, np, torch):
          device_index_stages={k: v for k, v in idx_ev.items()
                               if k.endswith('_s')},
          wave=[nq, pad], candidates=len(want.subject), candidates_equal=True,
-         host_candidates_s=round(host_cand_s, 4), device_candidates=runs)
+         host_candidates_s=round(host_cand_s, 4), device_candidates=runs,
+         xdrop_walk=walk_launches)
+    return walks, walk_launches['launches']
+
+
+def walk_edge_points(np, torch, step, device):
+    """Edge points of one direction on the card: a query as wide as its
+    row, subjects identical to it (walks that run to the end of their
+    sequence), shorter and unrelated; a group's first point at 0, bounds
+    at 0 and at the lengths, base > 0, starts past the end, junk bytes.
+    Returns (qtok_flat, db_tokens, L, per-point tensors by name) on
+    ``device``."""
+    L = 64
+    rng = np.random.default_rng(5)
+    AA = np.frombuffer(b'ACDEFGHIKLMNPQRSTVWY', np.uint8)
+    q = AA[rng.integers(0, 20, (3, L))]
+    q[2, ::3] = np.frombuffer(b'xX*J-a', np.uint8)[rng.integers(0, 6, 22)]
+    subs = [q[0], q[1, :40], AA[rng.integers(0, 20, 50)], q[2, :L - 5]]
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in subs])])
+    NEG = -(1 << 30)
+    pts = []                # qrow, sid, start_q, start_s, base, qlo, slo, qlen
+    for qrow, sid in ((0, 0), (1, 1), (0, 2), (2, 3), (1, 0)):
+        qlen = L if qrow == 0 else 47
+        for start in (0, 1, 20, qlen - 1, qlen):
+            for base in (0, 25):
+                pts.append((qrow, sid, start, start, base, -1, NEG, qlen))
+                pts.append((qrow, sid, start, start, base, 0, 0, qlen))
+                pts.append((qrow, sid, start, start + 3, base, 4, 1, qlen))
+    a = np.array(pts, np.int64)
+    if step == -1:
+        a[:, 6] = np.maximum(a[:, 6], -1)
+    i32 = {k: torch.from_numpy(a[:, c].astype(np.int32)).to(device)
+           for c, k in ((0, 'qrow'), (2, 'start_q'), (3, 'start_s'),
+                        (4, 'base'), (5, 'qlo'), (6, 'slo'), (7, 'qlen'))}
+    i32['slen'] = torch.from_numpy(
+        np.diff(offs)[a[:, 1]].astype(np.int32)).to(device)
+    i32['s_off'] = torch.from_numpy(offs[a[:, 1]]).to(device)
+    return (torch.from_numpy(q.reshape(-1)).to(device),
+            torch.from_numpy(np.concatenate(subs)).to(device), L, i32)
+
+
+def union_len(torch, lo, hi):
+    """Positions covered by the union of the closed ranges [lo, hi]."""
+    if lo.numel() == 0:
+        return 0
+    order = torch.argsort(lo)
+    lo, hi = lo[order], hi[order]
+    reach = torch.cummax(hi, 0).values
+    reach = torch.cat([reach.new_full((1,), -1), reach[:-1]])
+    return int((hi - torch.maximum(lo, reach + 1) + 1).clamp(min=0).sum())
+
+
+def walk_work(torch, step, L, qrow, s_off, start_q, start_s, steps):
+    """(steps walked, token bytes read once): the query and subject
+    positions the walks read, each counted once."""
+    n = steps.long()
+    on = n > 0
+    n = n[on]
+    first = -(n - 1) if step == -1 else torch.zeros_like(n)
+    q_lo = qrow[on].long() * L + start_q[on].long() + first
+    s_lo = s_off[on] + start_s[on].long() + first
+    return (int(n.sum()), union_len(torch, q_lo, q_lo + n - 1)
+            + union_len(torch, s_lo, s_lo + n - 1))
+
+
+def phase_walk_parity(np, torch, walks, rates):
+    """The x-drop walk kernel against walk_chunked on the card, bit for
+    bit: both directions of one real row block of the 41k corpus (the
+    arguments recorded in device_components) and edge points, with the
+    cap Wmax below the walks' length too.  Then both timed with CUDA
+    events in turns (plain, kernel, kernel, plain), beside the bound:
+    the larger of WALK_OPS_PER_STEP per step walked over the ALU rate
+    and WALK_POINT_BYTES a point plus the token bytes read once over the
+    memory rate.  Returns the kernel's row for the kernels line."""
+    from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
+    from swiftortho_tpu_torch.search import candidates_device as cd
+    check(sorted(walks) == [-1, 1], 'device_components recorded the walks '
+          '%s, not both directions' % sorted(walks))
+    t_phase = time.time()
+    rows, max_err, edges = [], 0, 0
+
+    def compare(name, args):
+        (qtok, db, _, L, WC, Wmax, qrow, s_off, sq, ss, step, base, qlo,
+         slo, qlen, slen) = args
+        best, best_t, steps = xw.xdrop_walk_cuda(
+            qtok, db, L, Wmax, qrow, s_off, sq, ss, step, base, qlo, slo,
+            qlen, slen, steps=True)
+        want, want_t = cd.walk_chunked(*args)
+        bad = int(((best != want) | (best_t != want_t)).sum())
+        check(bad == 0, '%s: the x-drop walk kernel differs from '
+              'walk_chunked at %d of %d points' % (name, bad, len(want)))
+        err = max(int((best - want).abs().max()),
+                  int((best_t - want_t).abs().max())) if len(want) else 0
+        return steps, err
+
+    for step in (1, -1):
+        qtok, db, L, t = walk_edge_points(np, torch, step,
+                                          walks[1][0].device)
+        b62 = cd.scoring_tables(qtok.device)['sub_flat']
+        for wmax, wc in ((L + 1, cd.WALK_CHUNK), (8, 8), (8, 1)):
+            args = (qtok, db, b62, L, wc, wmax, t['qrow'], t['s_off'],
+                    t['start_q'], t['start_s'], step, t['base'], t['qlo'],
+                    t['slo'], t['qlen'], t['slen'])
+            steps, err = compare('edge points, step %d, Wmax %d'
+                                 % (step, wmax), args)
+            max_err = max(max_err, err)
+            edges += len(steps)
+            if wmax == 8:
+                check(int(steps.max()) == 8, 'edge points: no walk met the '
+                      'cap Wmax = 8')
+        empty = args[:6] + tuple(x[:0] for x in args[6:10]) + (step,) \
+            + tuple(x[:0] for x in args[11:])
+        steps, _ = compare('no points', empty)
+        check(steps.shape == (0,), 'no points gave %s' % (steps.shape,))
+
+    total = {'ops': 0, 'bytes': 0}
+    for step, name in ((1, 'right'), (-1, 'left')):
+        args = walks[step]
+        (qtok, db, _, L, WC, Wmax, qrow, s_off, sq, ss, _, base, qlo, slo,
+         qlen, slen) = args
+        steps, err = compare('41k block, %s walk' % name, args)
+        max_err = max(max_err, err)
+        walked, token_bytes = walk_work(torch, step, L, qrow, s_off, sq, ss,
+                                        steps)
+        P = qrow.shape[0]
+        fns = {'plain': (lambda: cd.walk_chunked(*args), 1),
+               'kernel': (lambda: xw.xdrop_walk_cuda(
+                   qtok, db, L, Wmax, qrow, s_off, sq, ss, step, base, qlo,
+                   slo, qlen, slen), 20)}
+        samples = {k: [] for k in fns}
+        for _ in range(2):
+            for k in ('plain', 'kernel', 'kernel', 'plain'):
+                fn, n = fns[k]
+                samples[k].append(timed_ms(torch, fn, n))
+        ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
+        ops = WALK_OPS_PER_STEP * walked
+        nbytes = WALK_POINT_BYTES * P + token_bytes
+        total['ops'] += ops
+        total['bytes'] += nbytes
+        ops_ms = ops / rates['int_ops_per_s'] * 1e3
+        bytes_ms = nbytes / rates['bytes_per_s'] * 1e3
+        rows.append({'walk': name, 'step': step, 'points': P, 'L': L,
+                     'steps': walked, 'mean_steps': walked / max(P, 1),
+                     'max_steps': int(steps.max()) if P else 0,
+                     'token_bytes': token_bytes, 'mismatches': 0,
+                     'ms': ms['kernel'], 'plain_ms': ms['plain'],
+                     'bound_ms': max(ops_ms, bytes_ms),
+                     'bound_by': 'operations' if ops_ms >= bytes_ms
+                     else 'bytes',
+                     'bound_share': max(ops_ms, bytes_ms) / ms['kernel'],
+                     'speedup': ms['plain'] / ms['kernel'],
+                     'samples_ms': samples})
+    ops_ms = total['ops'] / rates['int_ops_per_s'] * 1e3
+    bytes_ms = total['bytes'] / rates['bytes_per_s'] * 1e3
+    main = {'ms': sum(r['ms'] for r in rows),
+            'plain_ms': sum(r['plain_ms'] for r in rows),
+            'bound_ms': max(ops_ms, bytes_ms),
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+            'max_abs_err': max_err,
+            'shape': {r['walk'] + '_points': r['points'] for r in rows}}
+    emit('walk_parity', tolerance=0, mismatches=0, max_abs_err=max_err,
+         edge_points=edges, blocks=rows, timer='cuda events',
+         ops_per_step=WALK_OPS_PER_STEP, point_bytes=WALK_POINT_BYTES,
+         rates=rates, both_walks=main,
+         seconds=round(time.time() - t_phase, 3))
+    return main
 
 
 def phase_search_device(tmp, torch, default):
     """The 41k search with the three device routes: the .sc md5, no
     fallback, every pair packed on the card and both kernel variants
-    launched through the packed route; beside the default route."""
+    launched through the packed route, the x-drop walk kernel launched
+    twice a stage-2 row block (the right and the left walk); beside the
+    default route.  Returns the SW launches, their shapes and the walk
+    kernel's launches."""
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     from swiftortho_tpu_torch.ops import device_pack
+    from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
     fsa = os.path.join(tmp, 'big.fsa')
     out = os.path.join(tmp, 'big.device.sc')
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cu.reset_counters()
+    xw.reset_counters()
     device_pack.reset_prof()
     wall, events = run_find_hit(fsa, out, 'cuda', **DEVICE_ROUTES)
     launches = dict(cu.launches)
+    walk = {'launches': xw.launches, 'points': xw.points}
     aligned = dict(cu.pairs)
     shapes = {k: dict(v) for k, v in cu.shapes.items()}
     packed_calls = dict(device_pack.PROF['calls'])
@@ -891,6 +1124,11 @@ def phase_search_device(tmp, torch, default):
           and packed_calls == launches,
           'kernel launches %s, of them through the packed route %s'
           % (launches, packed_calls))
+    blocks = sum(e['blocks'] for e in events
+                 if e['stage'] == 'device_candidates')
+    check(blocks > 0 and walk['launches'] == 2 * blocks,
+          'x-drop walk kernel launched %s times for %d stage-2 row blocks'
+          % (walk, blocks))
     waves = [e for e in events if e['stage'] == 'search_wave']
     pa = [e for e in events if e['stage'] == 'search_phaseA']
     check(waves and pa, 'search logged no waves or no phase A')
@@ -903,13 +1141,13 @@ def phase_search_device(tmp, torch, default):
                pack_s=round(device_pack.PROF['pack_s'], 4),
                packed_align_s=round(device_pack.PROF['align_s'], 4),
                stages=stage_split(events), pairs_aligned=aligned,
-               launches=launches, launch_shapes=shapes,
-               peak_device_bytes=peak)
+               launches=launches, launch_shapes=shapes, xdrop_walk=walk,
+               stage2_blocks=blocks, peak_device_bytes=peak)
     emit('search_device', **res,
          default_route={k: default[k] for k in
                         ('wall_s', 'index_s', 'phaseA_s', 'align_s',
                          'policy_s', 'launches', 'peak_device_bytes')})
-    return launches, shapes
+    return launches, shapes, walk['launches']
 
 
 def profiled(torch, fn):
@@ -1612,6 +1850,7 @@ def phase_multichunk(tmp, torch):
     from swiftortho_tpu_torch.cli.find_hit import main as find_hit
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     from swiftortho_tpu_torch.ops import device_pack
+    from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
     fsa = os.path.join(tmp, 'big.fsa')
     check(md5(fsa) == BIG_FSA_MD5, 'big.fsa missing or changed')
     mdir = os.path.join(tmp, 'multichunk')
@@ -1668,7 +1907,11 @@ def phase_multichunk(tmp, torch):
         if f.startswith('db.fsa.'):
             os.remove(os.path.join(mdir, f))
 
+    xw.reset_counters()
     row, events = search('device_routes', **DEVICE_ROUTES)
+    row['xdrop_walk_launches'] = walk_launches = xw.launches
+    check(walk_launches > 0, 'multichunk device routes launched no x-drop '
+          'walk kernel')
     fb = [e for e in events if e['stage'] in FALLBACKS]
     check(not fb, 'multichunk device routes fell back: %s' % fb[:3])
     check(row['packed_pairs'] > 0 and row['gathered_pairs'] == 0
@@ -1683,7 +1926,7 @@ def phase_multichunk(tmp, torch):
          chunk=MULTICHUNK, sc_md5=BIG_C10000_SC_MD5, runs=runs,
          launches=launches, launch_shapes=shapes,
          seconds=round(time.time() - t_phase, 3))
-    return launches, shapes
+    return launches, shapes, walk_launches
 
 
 def wide_shapes(shapes, width=4096):
@@ -1974,18 +2217,25 @@ def main(argv=None):
             children = [pipe, start_example_run(tmp)]
             try:
                 phase_search_parity(tmp)
-                phase_device_search_parity(tmp, torch)
+                walk_by_route = {
+                    'device_search_parity':
+                        phase_device_search_parity(tmp, torch)}
                 default = phase_search(tmp, torch)
                 launches = default['launches']
-                phase_device_components(tmp, np, torch)
-                packed, packed_shapes = phase_search_device(tmp, torch,
-                                                            default)
+                walks, walk_by_route['device_components'] = \
+                    phase_device_components(tmp, np, torch)
+                walk = phase_walk_parity(np, torch, walks, card_rates(torch))
+                del walks
+                packed, packed_shapes, walk['launches'] = \
+                    phase_search_device(tmp, torch, default)
+                walk_by_route['device_routes'] = walk['launches']
                 children.append(start_phasea_prep(tmp))
                 opc = phase_orth(tmp)
                 phase_cluster_parity(tmp, opc, torch)
                 phase_cluster_scale(np, torch)
                 multi = phase_multichip(tmp, opc, np, torch)
-                chunked, chunked_shapes = phase_multichunk(tmp, torch)
+                chunked, chunked_shapes, walk_by_route['multichunk'] = \
+                    phase_multichunk(tmp, torch)
                 long_launches, long_shapes = phase_long_pairs(tmp, torch)
                 scale = phase_scale(tmp, '102k')
                 # the long tiles are full-statistics launches at width 4096
@@ -2025,6 +2275,17 @@ def main(argv=None):
                 'library_ms': None,
                 'shape': [times[var]['B'], times[var]['L']]}
                for var in ('full', 'score_only')]
+    if not args.scale:
+        # the search's main path on the device routes is the 41k search
+        kernels.append({'name': 'xdrop_walk', 'route': 'cuda',
+                        'source': WALK_SOURCE, 'replaces': WALK_REPLACES,
+                        'launches': walk['launches'],
+                        'launches_by_route': walk_by_route,
+                        'max_abs_err': walk['max_abs_err'],
+                        'ms': walk['ms'], 'plain_ms': walk['plain_ms'],
+                        'bound_ms': walk['bound_ms'],
+                        'bound_by': walk['bound_by'], 'library_ms': None,
+                        'shape': walk['shape']})
     emit('done', seconds=round(time.time() - T_START, 1))
     print(smi_line)
     print(json.dumps({'kernels': kernels}))

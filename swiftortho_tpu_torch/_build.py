@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles every source in ``csrc/`` into one shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
+Every source in ``csrc/`` is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
 build takes seconds).  The library lives in ``build/`` under a name
-keyed by a sha256 of the sources and the compile command, so a changed
-source or flag always rebuilds and a stale binary is never loaded.  The
-command carries ``-Xptxas -v``; its report (registers, shared memory,
+keyed by a sha256 of the sources and the commands, so a changed source
+or flag always rebuilds and a stale binary is never loaded.  The
+compiles carry ``-Xptxas -v``; their report (registers, shared memory,
 spills per kernel) is kept beside the library and returned by
 ``build_info``.  Only sources in the repository are used.  Processes that
 build at first use together (fleet ranks on one host) each compile to a
@@ -31,7 +32,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _lib = None
@@ -70,8 +71,11 @@ def load_kernels() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         srcs = _sources()
-        cmd = [nvcc_path(), *NVCC_FLAGS, *srcs]
-        h = hashlib.sha256(' '.join(cmd).encode())
+        nvcc = nvcc_path()
+        compile_cmd = [nvcc, *NVCC_FLAGS, '-c']
+        link_cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a',
+                    '-shared']
+        h = hashlib.sha256(' '.join(compile_cmd + link_cmd).encode())
         for s in srcs:
             with open(os.path.join(CSRC, s), 'rb') as f:
                 h.update(s.encode() + b'\0' + f.read())
@@ -83,16 +87,30 @@ def load_kernels() -> ctypes.CDLL:
         if built:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = '%s.%d.tmp' % (so, os.getpid())
+            objs = ['%s.%s.o' % (tmp, s) for s in srcs]
             t0 = time.time()
-            r = subprocess.run(cmd + ['-o', tmp], cwd=CSRC,
-                               capture_output=True, text=True)
+            procs = [subprocess.Popen(compile_cmd + [s, '-o', o], cwd=CSRC,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for s, o in zip(srcs, objs)]
+            steps = []
+            for p in procs:
+                out = p.communicate()[0]
+                steps.append((p.args, p.returncode, out))
+            if all(rc == 0 for _, rc, _ in steps):
+                r = subprocess.run(link_cmd + objs + ['-o', tmp], cwd=CSRC,
+                                   capture_output=True, text=True)
+                steps.append((r.args, r.returncode, r.stdout + r.stderr))
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
             seconds = time.time() - t0
-            if r.returncode != 0:
-                raise RuntimeError('nvcc failed (exit %d): %s\n%s'
-                                   % (r.returncode, ' '.join(cmd),
-                                      (r.stdout + r.stderr)[-6000:]))
+            for args, rc, text in steps:
+                if rc != 0:
+                    raise RuntimeError('nvcc failed (exit %d): %s\n%s'
+                                       % (rc, ' '.join(args), text[-6000:]))
             with open(tmp + '.ptxas.txt', 'w') as f:
-                f.write(r.stdout + r.stderr)
+                f.write(''.join(text for _, _, text in steps))
             os.replace(tmp + '.ptxas.txt', report)
             os.replace(tmp, so)
         with open(report) as f:
@@ -102,12 +120,16 @@ def load_kernels() -> ctypes.CDLL:
         lib.swt_banded_sw.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp,
                                       ci, ci, ci, vp, vp]
         lib.swt_banded_sw.restype = ci
+        lib.swt_xdrop_walk.argtypes = [vp] * 12 + [ci] * 5 + [vp] * 4
+        lib.swt_xdrop_walk.restype = ci
         lib.swt_lanes_for.argtypes = [ci, ci]
         lib.swt_lanes_for.restype = ci
         lib.swt_cuda_error_string.argtypes = [ci]
         lib.swt_cuda_error_string.restype = ctypes.c_char_p
         _info.update(path=so, built=built, seconds=round(seconds, 3),
-                     command=' '.join(cmd), ptxas=ptxas)
+                     command='%s <source> && %s <objects>'
+                     % (' '.join(compile_cmd), ' '.join(link_cmd)),
+                     ptxas=ptxas)
         _lib = lib
         return _lib
 

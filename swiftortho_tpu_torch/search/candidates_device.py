@@ -32,10 +32,15 @@ Where torch differs from XLA, and what this module does:
   The posting cap ``SWIFTORTHO_DEVICE_CAND_CAP`` still cuts a wave into
   query-row blocks, and a query whose own postings exceed it falls back
   to the host engine with a ``device_candidates_fallback`` event;
-- the x-drop walks take all points of a stage-2 call at once, in blocks
-  only as large as ``WALK_BYTES`` of (points, WC) temporaries allow, and
-  drop ended points after every WC-step chunk (one host read per chunk):
-  the points are independent, so the results equal the lockstep walk.
+- the x-drop walks (``walk``) run on CUDA tensors in a hand-written
+  kernel (``ops/xdrop_walk_cuda.py``, ``csrc/xdrop_walk.cu``): one thread
+  walks one point until its own x-drop, with no scan, no temporary and
+  no host read; it raises on any build or launch error.  On CPU tensors
+  they run ``walk_chunked``, the plain version the kernel is held
+  against: all points of a stage-2 call at once, in blocks only as large
+  as ``WALK_BYTES`` of (points, WC) temporaries allow, dropping ended
+  points after every WC-step chunk (one host read per chunk).  The
+  points are independent, so both equal the lockstep walk.
 
 Each call logs a ``device_candidates`` event with the seconds of stage 1,
 expansion and sort, the right walk, the accept rounds, the left walk and
@@ -57,9 +62,11 @@ import torch
 from ..constants import B62_BYTES, MIN_CHAIN_SCORE, XDROP
 from ..device import StageClock, get_device
 from ..io_fasta import SeqDB
+from ..ops.banded_sw import scoring_tables
 from ..ops.index import SeedIndex
 from ..ops.index_device import BASIS, fnv_step, shifted, streams, tables
 from ..ops.scan import cummax_1d, cumsum_1d
+from ..ops.xdrop_walk_cuda import xdrop_walk_cuda
 from ..utils import log_event
 from .candidates import (Candidates, _finish_candidates,
                          generate_candidates)
@@ -73,14 +80,10 @@ DEFAULT_CAP = 1 << 23       # postings per stage-2 call
 # indices, int32 positions and sums, boolean masks)
 WALK_BYTES = 4 << 30
 CELL_BYTES = 64
-# steps per walk chunk: 64 was the fastest of 8/16/32/64/128 on an H100
-# (PERF.md); the JAX module's 32 was a TPU sweep's
+# steps per chunk of the plain walk: 64 was the fastest of
+# 8/16/32/64/128 on an H100 (PERF.md); the JAX module's 32 was a TPU
+# sweep's
 WALK_CHUNK = 64
-
-
-@lru_cache(maxsize=None)
-def _b62_flat_np() -> np.ndarray:
-    return B62_BYTES.reshape(-1).astype(np.int32)
 
 
 @lru_cache(maxsize=None)
@@ -242,6 +245,22 @@ def walk_chunked(qtok_flat, db_tokens, b62, L, WC, Wmax, qrow, s_off,
             torch.cat([p[1] for p in parts]))
 
 
+def walk(qtok_flat, db_tokens, b62, L, WC, Wmax, qrow, s_off, start_q,
+         start_s, step, base, qlo, slo, qlen, slen):
+    """``walk_chunked``'s results, by the tensors' device: CPU tensors go
+    to ``walk_chunked``, every other device to the x-drop walk kernel
+    (``xdrop_walk_cuda``, which reads the SW kernel's code table, not
+    ``b62``, and raises on anything but CUDA tensors).  Nothing falls
+    back from one to the other."""
+    if qrow.device.type == 'cpu':
+        return walk_chunked(qtok_flat, db_tokens, b62, L, WC, Wmax, qrow,
+                            s_off, start_q, start_s, step, base, qlo, slo,
+                            qlen, slen)
+    return xdrop_walk_cuda(qtok_flat, db_tokens, L, Wmax, qrow, s_off,
+                           start_q, start_s, step, base, qlo, slo, qlen,
+                           slen)
+
+
 def seg_max_scan(flags: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Segmented inclusive max-scan of int32-range ``vals``; ``flags``
     mark segment starts (values before the first flag form a segment)."""
@@ -315,7 +334,7 @@ def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
     # (2) the greedy cover as parallel rounds over the right ends; (3)
     # one left walk for every accepted point from its recorded cover
     qtok_flat = q_tok.reshape(-1)
-    b62 = _on(_b62_flat_np(), dev)
+    b62 = scoring_tables(dev)['sub_flat']
     p_qrow = (key_s >> 48).int().clamp_(0, B - 1)
     last_sid = db_offsets.shape[0] - 2
     p_sid = ((key_s >> 27) & ((1 << 21) - 1)).clamp_(0, last_sid)
@@ -338,11 +357,11 @@ def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
     fl = first[li]
     # right-walk lower bounds: 0 for a group's first point (position 0 is
     # excluded, the reference's 1-based walk); vacuous otherwise
-    br, tr = walk_chunked(qtok_flat, db_tokens, b62, L, WC, W, p_qrow[li],
-                          p_soff[li], p_qst[li], s0[li], 1, zero,
-                          torch.where(fl, 0, -1).int(),
-                          torch.where(fl, 0, -(1 << 30)).int(),
-                          p_qlen[li], p_slen[li])
+    br, tr = walk(qtok_flat, db_tokens, b62, L, WC, W, p_qrow[li],
+                  p_soff[li], p_qst[li], s0[li], 1, zero,
+                  torch.where(fl, 0, -1).int(),
+                  torch.where(fl, 0, -(1 << 30)).int(),
+                  p_qlen[li], p_slen[li])
     best_r = torch.zeros(total, dtype=torch.int32, device=dev)
     t_r = torch.full((total,), -1, dtype=torch.int32, device=dev)
     best_r[li] = br
@@ -357,7 +376,7 @@ def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
     # ascending order: the JAX module's stable compaction)
     ai = acc.nonzero().squeeze(1)
     qlo_a = qlo_rec[ai]
-    best_c, _ = walk_chunked(
+    best_c, _ = walk(
         qtok_flat, db_tokens, b62, L, WC, W, p_qrow[ai], p_soff[ai],
         p_qst[ai] - 1, s0[ai] - 1, -1, best_r[ai],
         qlo_a.clamp(min=0).int(),

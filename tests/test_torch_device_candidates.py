@@ -325,7 +325,7 @@ def test_walk_chunked_matches_jax(wc, step, monkeypatch):
                            step, *(jnp.asarray(x) for x in (base, qlo, slo,
                                                             qlen, slen)))
     T = torch.from_numpy
-    b62 = T(port._b62_flat_np())
+    b62 = port.scoring_tables(CPU)['sub_flat']
     args = (T(qtok), T(db), b62, L, wc, L + 1, T(qrow),
             T(s_off.astype(np.int64)), T(sq), T(ss), step, T(base), T(qlo),
             T(slo), T(qlen), T(slen))
