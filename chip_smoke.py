@@ -841,10 +841,12 @@ def recording_walks(cd, store):
 
 def phase_device_components(tmp, np, torch):
     """On the 41k corpus: the cuda index of the first chunk against the
-    host build_index, and the device engine on the first 4,096-query wave
-    against the host engine (twice: cold, then warm), with stage times
-    and the x-drop walk kernel's launches.  Returns the arguments of the
-    cold run's first right and left walks, by step, and those launches."""
+    host build_index (its tensors on the card, then its fetched arrays),
+    and the device engine on the first 4,096-query wave against the host
+    engine (twice: cold, then warm; no host fetch of the index), with
+    stage times and the x-drop walk kernel's launches.  Returns the
+    arguments of the cold run's first right and left walks, by step, and
+    those launches."""
     from swiftortho_tpu_torch.config import SearchConfig
     from swiftortho_tpu_torch.io_fasta import SeqDB
     from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
@@ -871,9 +873,17 @@ def phase_device_components(tmp, np, torch):
         dev = build_index_device(*args, threshold_override=cfg.threshold,
                                  device=cuda)
     device_index_s = time.time() - t0
-    for f in ('start', 'locus', 'soas'):
-        check(np.array_equal(getattr(host, f), getattr(dev, f)),
-              'device index %s != host build_index' % f)
+    # the index stays on the card: its tensors against the host arrays,
+    # uploaded, with no host fetch of its own
+    check(dev.device.type == 'cuda' and not dev._host,
+          'device index not left on the card: %s, fetched %s'
+          % (dev.device, sorted(dev._host)))
+    for f in ('start', 'locus', 'sid', 'sst'):
+        t = dev.tensors[f]
+        check(torch.equal(t, torch.from_numpy(getattr(host, f))
+                          .to(t.device, t.dtype)),
+              'device index tensor %s != host build_index' % f)
+    check(np.array_equal(host.soas, dev.soas), 'device index soas differs')
     check(host.threshold == dev.threshold, 'device index threshold %s != %s'
           % (dev.threshold, host.threshold))
     idx_ev = events_of(buf.getvalue())[-1]
@@ -908,6 +918,14 @@ def phase_device_components(tmp, np, torch):
         runs.append({'seconds': round(secs, 4),
                      **{k: v for k, v in ev[0].items()
                         if k not in ('ts', 'stage', 'device')}})
+    check(not dev._host, 'the device engine fetched the device index\'s '
+          '%s to the host' % sorted(dev._host))
+    check(all(a is dev.tensors[k] for a, k in zip(
+        cd._device_index(dev, cuda), ('start', 'sid', 'sst'))),
+        'the device engine does not use the device index\'s tensors')
+    for f in ('start', 'locus', 'sid', 'sst'):
+        check(np.array_equal(getattr(host, f), getattr(dev, f)),
+              'device index %s, fetched, != host build_index' % f)
     walk_launches = {'launches': xw.launches, 'points': xw.points}
     blocks = sum(r['blocks'] for r in runs)
     check(walk_launches['launches'] == 2 * blocks,
@@ -915,7 +933,8 @@ def phase_device_components(tmp, np, torch):
           'walks a block)' % (walk_launches, blocks))
     emit('device_components', sequences=len(db), index_T=idx_ev['T'],
          postings=idx_ev['postings'], threshold=dev.threshold,
-         index_equal=True, host_index_s=round(host_index_s, 4),
+         index_equal=True, index_on_card=True, engine_host_fetches=0,
+         host_index_s=round(host_index_s, 4),
          device_index_s=round(device_index_s, 4),
          device_index_stages={k: v for k, v in idx_ev.items()
                               if k.endswith('_s')},

@@ -1,11 +1,12 @@
-"""Seed-index build on the device: spaced-seed FNV hashing and one sort of
-packed keys in torch, the CSR and the threshold on the host.
+"""Seed-index build on the device: spaced-seed FNV hashing, one sort of
+packed keys, the CSR and the locus decode in torch, on the device; only
+the positive bucket counts come to the host, for the threshold.
 
 Port of ``swiftortho_tpu/ops/index_device.py`` (``_hash_sort_device``
 :78-136, ``build_index_device`` :145-201); same contract: the SeedIndex
 equals ``swiftortho_tpu.ops.index.build_index``'s (``start``, ``locus``,
-``soas``, ``threshold``), which reads the reference's counting sort
-``Fasta.build_msav`` (lib/fsearch.py:2240-2266).
+``soas``, ``threshold``, ``sid``, ``sst``), which reads the reference's
+counting sort ``Fasta.build_msav`` (lib/fsearch.py:2240-2266).
 
 - hashing: the FNV-1a chain of ``ops.seeds`` over reduced codes at the
   pattern's '1' offsets, then the pattern index.  torch has no full
@@ -19,19 +20,33 @@ equals ``swiftortho_tpu.ops.index.build_index``'s (``start``, ``locus``,
 - order: one ``torch.sort`` of the kept keys bucket * S(T+1) + stream *
   (T+1) + position reproduces the host's stable argsort over the
   alphabet-major stream concatenation, so ``locus`` matches element for
-  element.
+  element;
+- CSR and decode: the runs of the sorted buckets give the positive
+  bucket counts, scattered and summed into the CSR; the reference's
+  bisect (``SeedIndex.decode_locus``, its off-by-one kept) is a
+  ``torch.searchsorted`` over ``soas``;
+- threshold: the positive bucket counts, in bucket order, are fetched
+  and passed to the host's float64 ``ref_mu_sd``, so the sums run in the
+  same order as the host build's and the integer gate cannot drift by
+  an ulp.
 
-The bincount/cumsum CSR and the float64 ``ref_mu_sd`` threshold stay on
-the host over the fetched sorted stream, as in the JAX package, so the
-integer gate cannot drift by a summation-order ulp.  Deviation from the
-JAX module: no {2^k, 3*2^k} padding of T (it served XLA's compile cache);
-the key layout uses the true T.  Falls back to the host build, with a
-``device_index_fallback`` log event, when the key range does not hold.
-Selected by ``SWIFTORTHO_INDEX=device`` (``search.blastp.IndexSource``).
+The result is a ``DeviceSeedIndex``: ``start``, ``sid`` and ``sst`` stay
+on the device as int32 tensors (the device candidate engine's layout)
+beside ``locus``, and the host arrays are fetched only when a host
+consumer first reads them.
+
+Deviations from the JAX module: it fetches the sorted keys and builds the
+CSR, the threshold and the decode on the host (its :145-201); here they
+stay on the device.  No {2^k, 3*2^k} padding of T (it served XLA's
+compile cache); the key layout uses the true T.  Falls back to the host
+build, with a ``device_index_fallback`` log event, when the key range
+does not hold; raises when the postings do not fit int32.  Selected by
+``SWIFTORTHO_INDEX=device`` (``search.blastp.IndexSource``).
 """
 
 from __future__ import annotations
 
+import threading
 from functools import lru_cache
 from typing import List
 
@@ -145,13 +160,78 @@ def device_index_supported(T: int, nc: int, n_streams: int) -> bool:
     return nc * (n_streams * (max(T, 1) + 1) + 1) < (1 << 62)
 
 
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """One tensor as a host array (the only device-to-host copies of a
+    device index)."""
+    return t.cpu().numpy()
+
+
+def csr_of(b: torch.Tensor, nc: int) -> tuple:
+    """The CSR offsets (``nc + 1``, int32) of the ascending bucket ids
+    ``b``, and the positive bucket counts in bucket order: the lengths of
+    the runs of ``b``, found without a pass over all ``nc`` buckets."""
+    bucket, counts = torch.unique_consecutive(b, return_counts=True)
+    csr = torch.zeros(nc + 1, dtype=torch.int32, device=b.device)
+    csr[bucket + 1] = counts.int()
+    torch.cumsum(csr, 0, dtype=torch.int32, out=csr)
+    return csr, counts
+
+
+def threshold_of(counts: torch.Tensor) -> int:
+    """``int(mu + 2 sd)`` of the positive bucket counts, in bucket order:
+    they go to the host's ``ref_mu_sd``, which sums the same array in the
+    same order as the host build (its mask of the zero counts keeps
+    every entry)."""
+    mu, sd = ref_mu_sd(_fetch(counts.int()))
+    return int(mu + 2 * sd)
+
+
+# host dtype of each array of the SeedIndex contract
+HOST_DTYPES = {'start': np.int64, 'locus': np.int64, 'sid': np.int32,
+               'sst': np.int32}
+
+
+class DeviceSeedIndex(SeedIndex):
+    """A SeedIndex whose CSR (``start``), postings (``locus``) and decoded
+    postings (``sid``, ``sst``) stay on the device that built them:
+    ``tensors`` holds ``start``, ``sid`` and ``sst`` as int32 and
+    ``locus`` as int64.  Reading one of those four attributes fetches
+    that array to the host once, under a lock (phase A's producer and
+    prefetch threads may race for it), in the dtype of ``SeedIndex``.
+    The properties shadow the dataclass's field defaults."""
+
+    def __init__(self, nc: int, tensors: dict, soas: np.ndarray,
+                 seq_offset: int, threshold: int, mink: int):
+        self.nc, self.soas, self.seq_offset = nc, soas, seq_offset
+        self.threshold, self.mink = threshold, mink
+        self.tensors = tensors
+        self.device = tensors['start'].device
+        self._host: dict = {}
+        self._lock = threading.Lock()
+
+    def host(self, name: str) -> np.ndarray:
+        with self._lock:
+            a = self._host.get(name)
+            if a is None:
+                a = _fetch(self.tensors[name]).astype(HOST_DTYPES[name],
+                                                      copy=False)
+                self._host[name] = a
+            return a
+
+    start = property(lambda self: self.host('start'))
+    locus = property(lambda self: self.host('locus'))
+    sid = property(lambda self: self.host('sid'))
+    sst = property(lambda self: self.host('sst'))
+
+
 def build_index_device(db: SeqDB, start: int, end: int,
                        alphabets: List[str], ssps: str, nc: int,
                        step: int = 1, threshold_override: int = -1,
                        device: torch.device | None = None) -> SeedIndex:
-    """Drop-in replacement for ``ops.index.build_index`` with the hashing
-    and the sort on ``device`` (default ``get_device()``).  Logs a
-    ``device_index`` event with the device and host seconds."""
+    """Drop-in replacement for ``ops.index.build_index`` that builds on
+    ``device`` (default ``get_device()``) and leaves the index there (a
+    ``DeviceSeedIndex``).  Logs a ``device_index`` event whose ``*_s``
+    fields split the build's seconds."""
     end = min(end, len(db))
     lens = db.lengths[start:end].astype(np.int64)
     soas = np.zeros(end - start + 1, dtype=np.int64)
@@ -172,26 +252,33 @@ def build_index_device(db: SeqDB, start: int, end: int,
         torch.from_numpy(lens).to(device), output_size=T)
     key = _hash_sort(tok_dev, seq_of, tables(tuple(alphabets), device), nc,
                      strms, int(step))
+    del tok_dev, seq_of
     clock.mark('hash_sort')
-    key = key.cpu().numpy()
-    clock.mark('fetch')
+    n = key.numel()
+    if n >= 1 << 31:
+        raise OverflowError('%d postings: the device index keeps its CSR '
+                            'in int32' % n)
 
-    M = np.int64(len(strms)) * (T + 1)
-    b = key // M
-    p = (key % M) % np.int64(T + 1)
-    counts = np.bincount(b, minlength=nc) if len(key) else \
-        np.zeros(nc, np.int64)
-    csr = np.zeros(nc + 1, dtype=np.int64)
-    np.cumsum(counts, out=csr[1:])
-    mu, sd = ref_mu_sd(counts)
-    threshold = int(mu + 2 * sd)
-    if threshold_override >= 1:
-        threshold = threshold_override
-    ix = SeedIndex(nc=nc, start=csr, locus=p.astype(np.int64),
-                   soas=soas, seq_offset=start, threshold=threshold,
-                   mink=min_pattern_len(ssps))
-    clock.mark('host')
-    log_event('device_index', device=str(device), T=T, postings=len(key),
+    M = len(strms) * (T + 1)
+    locus = key % M % (T + 1)
+    csr, counts = csr_of(key // M, nc)
+    del key
+    clock.mark('csr')
+
+    # SeedIndex.decode_locus: the largest idx with soas[idx] < locus
+    soas_dev = torch.from_numpy(soas).to(device)
+    idx = (torch.searchsorted(soas_dev, locus, side='left') - 1) \
+        .clamp_min(0)
+    sid = (idx + start).int()
+    sst = (locus - soas_dev[idx]).int()
+    clock.mark('decode')
+
+    threshold = threshold_override if threshold_override >= 1 else \
+        threshold_of(counts)
+    ix = DeviceSeedIndex(nc, {'start': csr, 'locus': locus, 'sid': sid,
+                              'sst': sst}, soas, start, threshold,
+                         min_pattern_len(ssps))
+    clock.mark('threshold')
+    log_event('device_index', device=str(device), T=T, postings=n,
               **clock.rounded())
     return ix
-

@@ -309,8 +309,8 @@ class IndexSource:
         r_end = D if r_end < 0 else min(r_end, D)
         starts = list(range(r_start, r_end, chunk))
 
-        # SWIFTORTHO_INDEX=device: seed hashing and the packed-key sort
-        # on the device, the CSR and threshold on the host (same index)
+        # SWIFTORTHO_INDEX=device: the index built and kept on the
+        # device, the threshold's sums on the host (same index)
         import os as _os
         if _os.environ.get('SWIFTORTHO_INDEX', '') == 'device':
             from functools import partial

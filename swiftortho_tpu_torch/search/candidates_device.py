@@ -44,8 +44,10 @@ Where torch differs from XLA, and what this module does:
 
 Each call logs a ``device_candidates`` event with the seconds of stage 1,
 expansion and sort, the right walk, the accept rounds, the left walk and
-the fetch.  The device copies of the reference tokens and of each chunk
-index's CSR are cached under a lock: phase A calls the engine from
+the fetch.  An index built on the engine's device
+(``ops.index_device.DeviceSeedIndex``) is used as it lies there; the
+device copies of the reference tokens and of any other chunk index's CSR
+are cached under a lock: phase A calls the engine from
 ``SWIFTORTHO_PRODUCERS`` threads.
 """
 
@@ -60,11 +62,12 @@ import numpy as np
 import torch
 
 from ..constants import B62_BYTES, MIN_CHAIN_SCORE, XDROP
-from ..device import StageClock, get_device
+from ..device import StageClock, get_device, indexed
 from ..io_fasta import SeqDB
 from ..ops.banded_sw import scoring_tables
 from ..ops.index import SeedIndex
-from ..ops.index_device import BASIS, fnv_step, shifted, streams, tables
+from ..ops.index_device import (BASIS, DeviceSeedIndex, fnv_step, shifted,
+                                streams, tables)
 from ..ops.scan import cummax_1d, cumsum_1d
 from ..ops.xdrop_walk_cuda import xdrop_walk_cuda
 from ..utils import log_event
@@ -417,11 +420,16 @@ def _device_db(db: SeqDB, device: torch.device):
 
 
 def _device_index(index: SeedIndex, device: torch.device):
-    """(start, sid, sst) int32 on ``device``, cached on the index."""
+    """(start, sid, sst) int32 on ``device``: the tensors a device build
+    left on the index when it lies on ``device``, else copies of its host
+    arrays, cached on the index."""
+    device = indexed(device)
+    if isinstance(index, DeviceSeedIndex) and indexed(index.device) == device:
+        return tuple(index.tensors[k] for k in ('start', 'sid', 'sst'))
     with _CACHE_LOCK:
         ent = getattr(index, '_torch_arrays', None)
-        if ent is None or ent[0] != str(device):
-            ent = (str(device), tuple(
+        if ent is None or ent[0] != device:
+            ent = (device, tuple(
                 _on(a.astype(np.int32), device)
                 for a in (index.start, index.sid, index.sst)))
             index._torch_arrays = ent

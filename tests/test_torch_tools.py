@@ -11,7 +11,9 @@ counterparts, on the same seeded inputs on the CPU.
 - ``tools.bench_device_cand``: device and host candidates equal at two
   caps, and the host candidates equal the JAX ``generate_candidates``'s;
 - ``tools/example_run.sh``: the JAX script's commands on the port's
-  modules, with no CPU default.
+  modules, with no CPU default;
+- ``tools.index_cold``: every build of the first chunk logs the device
+  index's stages, with the host ``build_index``'s postings.
 
 No timing is asserted: the CPU runs the plain versions of the kernels.
 """
@@ -295,3 +297,32 @@ def test_example_run_script_mirrors_jax():
             for c in _commands(os.path.join(REPO, 'tools',
                                             'example_run.sh'))]
     assert _commands(PORT_SCRIPT) == want and len(want) == 7
+
+
+# -- index_cold ------------------------------------------------------------
+
+def test_index_cold_builds_the_first_chunk(tmp_path, monkeypatch, capsys):
+    from swiftortho_tpu.config import SearchConfig
+    from swiftortho_tpu.io_fasta import SeqDB
+    from swiftortho_tpu.ops.index import build_index
+    from swiftortho_tpu_torch.ops import index_device
+    from swiftortho_tpu_torch.tools import index_cold
+    monkeypatch.setenv('SWIFTORTHO_PLATFORM', 'cpu')
+    log_event = index_device.log_event
+    index_cold.main(['--taxa', '3', '--families', '20', '--max-len', '120',
+                     '--builds', '2', '--profile',
+                     '--workdir', str(tmp_path)])
+    assert index_device.log_event is log_event
+    res = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert res['device'] == 'cpu' and len(res['builds']) == 2
+    for b in res['builds']:
+        assert sorted(k for k in b if k.endswith('_s')) == \
+            ['csr_s', 'decode_s', 'hash_sort_s', 'threshold_s']
+    assert res['first_build_top_host_events']
+    db = SeqDB.from_path(str(tmp_path / 'c.fsa'))
+    cfg = SearchConfig()
+    want = build_index(db, 0, min(cfg.effective_chunk(), len(db)),
+                       cfg.resolved_alphabets(), cfg.seeds, cfg.nc,
+                       cfg.step)
+    assert res['postings'] == len(want.locus)
+    assert res['T'] == int(db.offsets[len(db)])
