@@ -16,7 +16,8 @@ computed with the JAX package on the CPU):
   configuration (41,168 sequences): the m8 table byte for byte, on the
   default route and on the device route (SWIFTORTHO_INDEX=device,
   SWIFTORTHO_CANDIDATES=device, SWIFTORTHO_DEVICE_PACK=force: index,
-  candidates and pair packing on the card);
+  candidates, pair packing and the wave body on the card), where every
+  wave must run the device wave and report its host reads;
 - the device routes on the 1,034-sequence corpus, each alone, all
   together, with a partial pair table and with a posting cap that cuts
   stage 2 into row blocks; and the device index and candidate engine on
@@ -1107,11 +1108,17 @@ def phase_walk_parity(np, torch, walks, rates):
     return main
 
 
+WAVE_SPLIT = ('rank_s', 'prep_s', 'run_s', 'pack_s', 'sw_s',
+              'postprocess_s', 'policy_s', 'format_s', 'emit_s')
+
+
 def phase_search_device(tmp, torch, default):
     """The 41k search with the three device routes: the .sc md5, no
     fallback, every pair packed on the card and both kernel variants
     launched through the packed route, the x-drop walk kernel launched
-    twice a stage-2 row block (the right and the left walk); beside the
+    twice a stage-2 row block (the right and the left walk), the device
+    wave's split summed over the waves (host seconds by part; ``pack_s``
+    and ``sw_s`` device seconds) and each wave's host reads; beside the
     default route.  Returns the SW launches, their shapes and the walk
     kernel's launches."""
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
@@ -1151,6 +1158,12 @@ def phase_search_device(tmp, torch, default):
     waves = [e for e in events if e['stage'] == 'search_wave']
     pa = [e for e in events if e['stage'] == 'search_phaseA']
     check(waves and pa, 'search logged no waves or no phase A')
+    # the device wave ran every wave: its split and host reads
+    split = [e for e in events if e['stage'] == 'device_wave']
+    check(len(split) == len(waves)
+          and all('host_syncs' in w for w in waves),
+          'device wave: %d split events and host_syncs in %d of %d waves'
+          % (len(split), sum('host_syncs' in w for w in waves), len(waves)))
     res = dict(sc_md5=got, wall_s=round(wall, 3),
                index_s=pa[0]['idx_wait_s'], phaseA_s=pa[0]['cand_s'],
                align_s=round(sum(w['align1_s'] for w in waves), 3),
@@ -1159,6 +1172,10 @@ def phase_search_device(tmp, torch, default):
                gathered_pairs=gathered,
                pack_s=round(device_pack.PROF['pack_s'], 4),
                packed_align_s=round(device_pack.PROF['align_s'], 4),
+               wave_split={k: round(sum(e[k] for e in split), 4)
+                           for k in WAVE_SPLIT},
+               host_syncs=[w['host_syncs'] for w in waves],
+               esc_rounds=[w['esc_rounds'] for w in waves],
                stages=stage_split(events), pairs_aligned=aligned,
                launches=launches, launch_shapes=shapes, xdrop_walk=walk,
                stage2_blocks=blocks, peak_device_bytes=peak)

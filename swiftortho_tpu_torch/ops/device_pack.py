@@ -37,7 +37,11 @@ class (:160-277).  What this module replaces:
 ``SWIFTORTHO_DEVICE_PACK``: ``0`` off, ``force`` on; the default "auto"
 means TPU backends in the JAX package, so it is off here.  ``PROF``
 counts the route's calls and pairs per kernel variant and the seconds
-spent packing and aligning.
+spent packing and aligning.  ``run`` takes host index vectors and
+returns host arrays; ``run_tensors``, for the device wave
+(``search.device_wave``), takes and returns tensors on the device and
+reads nothing back, its seconds being device time between CUDA events
+(``DeviceSpans``).
 """
 
 from __future__ import annotations
@@ -277,3 +281,72 @@ class DevicePackContext:
             PROF['pack_s'] += t_b - t_a
             PROF['align_s'] += t_c - t_b
         return dict(zip(FIELDS, host))
+
+    def run_tensors(self, wave, i0, o0, n0, i1, o1, n1, L0: int, L1: int,
+                    spans: 'DeviceSpans', score_only: bool = False) -> dict:
+        """``run`` for int64 index tensors on ``self.device``, without a
+        search mesh: packs and aligns there and returns the fields as
+        int32 tensors on the device, reading nothing back (the device
+        wave, ``search.device_wave``).  ``spans`` times the packing
+        (``pack``) and the alignment (``align``) on the device; the
+        caller charges them to ``PROF`` (``charge``) once it has read
+        from the device."""
+        _, wave_width, toks = wave
+        W = max(self.stride, wave_width)
+        L0, L1 = min(L0, W), min(L1, W)
+        table, rows = self._table(), self._rows_on(toks, self.device)
+        t_a = spans.mark()
+        p0 = _pack(table, rows, i0, o0, n0, L0)
+        p1 = _pack(table, rows, i1, o1, n1, L1)
+        t_b = spans.mark()
+        out = sw_align_local(p0, p1, n0.int(), n1.int(),
+                             score_only=score_only)
+        spans.add('pack', t_a, t_b)
+        spans.add('align', t_b, spans.mark())
+        variant = 'score_only' if score_only else 'full'
+        with _prof_lock:
+            PROF['calls'][variant] += 1
+            PROF['pairs'][variant] += int(i0.shape[0])
+        return out
+
+
+class DeviceSpans:
+    """Seconds of device work between marks, taken without waiting for
+    the device: CUDA events on a card, summed by ``settle`` once the
+    host has read from the device after the last mark; the host clock on
+    the CPU, where each torch operation has run when it returns."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == 'cuda'
+        self._pending: list = []
+        self.seconds: dict = {}
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def add(self, name: str, start, end):
+        if self.cuda:
+            self._pending.append((name, start, end))
+        else:
+            self.seconds[name] = self.seconds.get(name, 0.0) + end - start
+
+    def settle(self) -> dict:
+        """Seconds by name so far."""
+        for name, start, end in self._pending:
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + start.elapsed_time(end) / 1e3)
+        self._pending = []
+        return self.seconds
+
+
+def charge(seconds: dict):
+    """Add the ``pack`` and ``align`` seconds of a ``DeviceSpans`` to
+    ``PROF``."""
+    with _prof_lock:
+        PROF['pack_s'] += seconds.get('pack', 0.0)
+        PROF['align_s'] += seconds.get('align', 0.0)

@@ -34,7 +34,10 @@ byte-identical to it.  What differs is the schedule and the device:
   (``ops.index_device``), ``SWIFTORTHO_CANDIDATES=device`` runs the
   candidate engine there (``search.candidates_device``) and
   ``SWIFTORTHO_DEVICE_PACK=force`` packs the pair tokens there from
-  resident tables (``ops.device_pack``);
+  resident tables (``ops.device_pack``); with the last two, no search
+  mesh and no spill directory, the wave body runs there as well
+  (``search.device_wave``, logging ``host_syncs`` in ``search_wave``)
+  and the numpy body below serves every other route;
 - ``SWIFTORTHO_CANDIDATES=multidb`` holds every chunk index resident
   and fans each wave's candidate generation out over them, one device
   engine per chunk, round-robin over the active mesh's 'db' devices
@@ -59,6 +62,7 @@ tie.
 
 from __future__ import annotations
 
+import threading
 from typing import IO, Iterator, List
 
 import numpy as np
@@ -99,6 +103,15 @@ def use_prepass(device: torch.device) -> bool:
     return device.type == 'cuda'
 
 
+_batches = threading.local()
+
+
+def host_batches() -> int:
+    """The host batches (``_align_on`` calls, one device-to-host copy
+    each) this thread has aligned so far."""
+    return getattr(_batches, 'n', 0)
+
+
 def _align_on(device, t0, t1, l0, l1, score_only: bool = False) -> dict:
     """Align one padded host batch on ``device``, or over the active
     search mesh's devices (each shard goes straight from the host to its
@@ -110,6 +123,7 @@ def _align_on(device, t0, t1, l0, l1, score_only: bool = False) -> dict:
         args = [x.to(device) for x in args]
     best = sw_align_auto(*args, score_only=score_only)
     host = torch.stack([best[k] for k in FIELDS]).cpu().numpy()
+    _batches.n = host_batches() + 1
     return dict(zip(FIELDS, host))
 
 
@@ -234,6 +248,220 @@ def _align_pairs(q_tokens, q_lengths, db: SeqDB, qrow, subject,
         cap = int(pad_need[rest].max())
         run_bucket(rest, -(-cap // 128) * 128)
     return out
+
+
+def _rungs(nhits_of: np.ndarray, cfg: SearchConfig):
+    """A wave's staged-alignment schedule: (the per-query miss bound
+    ``mm``, the first rung ``rung0``, the escalation ``ladder``).
+
+    Staged alignment: the reference's sequential loop stops after mmiss
+    (<=120) consecutive misses, so most queries never look past their
+    first ~160 candidates; align that rung first and climb the ladder
+    only for queries whose stop condition is unresolved.  Rung sizes are
+    tunable (SWIFTORTHO_ALIGN_STAGES="160" default); measured on the 40k
+    corpus, a lower first rung (64) makes ~60% of queries escalate (stop
+    ranks are deep when corpora are dense) and the extra dispatch rounds
+    cost more than the saved cells."""
+    import os
+    _stages_env = os.environ.get('SWIFTORTHO_ALIGN_STAGES', '160')
+    STAGES = tuple(int(s) for s in _stages_env.split(',') if s)
+    # the per-query miss bound (the reference's mmiss clamp,
+    # fsearch.py:3052-3054) — needed here because the first rung
+    # must cover the typical stop rank (~true hits + mmiss): on
+    # dense corpora (many taxa) mmiss clamps to 120 and stops land
+    # past a fixed 160, which would send almost every query to the
+    # full-tail rung.  Schedule-only: output never depends on rungs.
+    mm = nhits_of * max(cfg.max_miss, 1e-3) + 1.0
+    mm = np.maximum(mm, 100.0 / mm)
+    mm = np.minimum(np.maximum(mm, 10), 120)
+    rung0 = int(max(STAGES[0],
+                    (mm.max() if len(mm) else 0) + STAGES[0] / 2))
+    ladder = [s for s in STAGES[1:] if s > rung0] + [None]
+    return mm, rung0, ladder
+
+
+def _fast_policy(qrow, rank, pass_all, is_long, nq_w: int, mm, rung0: int,
+                 v: int):
+    """The policy's vectorised fast path over a wave's ranked pairs
+    (``qrow`` sorted).  For queries without long pairs, the sequential
+    accept/stop loop reduces to segment ops — miss-run length is rank
+    minus the last passing rank (segmented cummax), the stop position is
+    the first rank where the miss-run or the hit count crosses its bound,
+    and the emitted rows are exactly the passing ranks up to the stop.  A
+    query is resolved by the fast path only when its stop falls inside
+    the aligned prefix (``rung0``); everything else (long pairs,
+    unresolved stops) runs the exact loop (``_policy_rows``).  Returns
+    (fast, emit, q_lo, q_hi, present): per query whether the fast path
+    resolved it, per pair whether it is emitted, and each query's pairs
+    [q_lo, q_hi)."""
+    n_pairs = len(qrow)
+    q_lo = np.searchsorted(qrow, np.arange(nq_w))
+    q_hi = np.searchsorted(qrow, np.arange(nq_w), side='right')
+    seg_len = q_hi - q_lo
+    present = seg_len > 0
+    has_long = np.zeros(nq_w, dtype=bool)
+    if is_long.any():
+        has_long[qrow[is_long]] = True
+
+    csum = np.cumsum(pass_all)
+    base = np.zeros(nq_w, dtype=np.int64)
+    if present.any():
+        base[present] = (csum[q_lo[present]]
+                         - pass_all[q_lo[present]])
+    hits_cum = csum - base[qrow] if n_pairs else csum
+    BIGR = np.int64(1) << 40
+    val = np.where(pass_all, rank, -1)
+    gv = qrow * (BIGR * 2) + val
+    last_hit = np.maximum.accumulate(gv) - qrow * (BIGR * 2)
+    miss_run = rank - last_hit
+    stop = ((miss_run >= mm[qrow])
+            | (hits_cum >= v + mm[qrow]))
+    s_idx = np.where(stop, rank, BIGR)
+    first_stop = np.full(nq_w, BIGR, dtype=np.int64)
+    if present.any():
+        first_stop[present] = np.minimum.reduceat(s_idx, q_lo[present])
+    prefix = np.minimum(seg_len, rung0)
+    fast = present & ~has_long & (
+        (first_stop < prefix)
+        | ((first_stop == BIGR) & (seg_len <= prefix)))
+    emit = pass_all & fast[qrow] & (rank <= first_stop[qrow])
+    return fast, emit, q_lo, q_hi, present
+
+
+def _policy_rows(sel, qlen: int, nhits: int, subj, ls_all, is_long,
+                 aligned, full: dict, long_rows: dict, D: int,
+                 cfg: SearchConfig):
+    """Run the reference's sequential accept/stop loop over the pairs
+    ``sel`` of one query (``qlen`` long, ``nhits`` candidates before the
+    cut); returns (rows, resolved) — unresolved when an unaligned
+    candidate is reached before the stop condition triggers.  The pair
+    arrays are indexed by the entries of ``sel``."""
+    # the reference clamps max_miss itself before use
+    # (fsearch.py:2970: max_miss = max(max_miss, 1e-3))
+    mmiss = nhits * max(cfg.max_miss, 1e-3) + 1
+    mmiss = max(mmiss, 100.0 / mmiss)
+    mmiss = min(max(mmiss, 10), 120)
+    unmch = 0
+    bv = 0
+    rows = []
+    for p in sel:
+        j = int(subj[p])
+        slen = int(ls_all[p])
+        if not is_long[p]:
+            if not aligned[p]:
+                return rows, False
+            bit = int(full['bit'][p])
+            e = D * qlen * slen * (2.0 ** -bit)
+            if e <= cfg.expect:
+                rows.append((
+                    float(full['idy'][p]), int(full['aln'][p]),
+                    int(full['mis'][p]), int(full['gap'][p]),
+                    int(full['qst'][p]) + 1, int(full['qed'][p]),
+                    int(full['sst'][p]) + 1, int(full['sed'][p]),
+                    e, bit, j, slen))
+                unmch = 0
+                bv += 1
+            else:
+                unmch += 1
+        else:
+            hit_any = False
+            for tile in long_rows[p]:
+                bit = tile['bit']
+                e = D * qlen * slen * (2.0 ** -bit)
+                if e <= cfg.expect:
+                    rows.append((tile['idy'], tile['aln'],
+                                 tile['mis'], tile['gap'],
+                                 tile['qst'] + 1, tile['qed'],
+                                 tile['sst'] + 1, tile['sed'],
+                                 e, bit, j, slen))
+                    hit_any = True
+                    bv += 1
+            if hit_any:
+                unmch = 0
+            else:
+                unmch += 1
+        if unmch >= mmiss or bv >= cfg.v + mmiss:
+            break
+    return rows, True
+
+
+def _format_fast(emitted: dict, lens, wst: int, wend: int, qry: SeqDB,
+                 ref_blobs, cfg: SearchConfig):
+    """The fast path's rows as formatted bytes: per query by bit desc
+    (stable = acceptance order on ties, like list.sort), top v, one
+    threaded call of the native formatter (fmtrows.cpp, char-for-char
+    the Python path).  ``emitted`` holds the emitted pairs' fields in
+    pair order (``qrow``, ``subj``, ``slen``, ``e`` and the kernel's
+    fields).  Returns (buffer, row ends, query row of each row)."""
+    from ..native import encode_blob, format_rows_native
+    eb = emitted['bit']
+    eq = emitted['qrow']
+    if (len(eb) == 0 or (eb.min() >= 0 and eb.max() < (1 << 40)
+                         and (wend - wst) <= (1 << 22))):
+        key = (eq.astype(np.int64) << 40) | ((1 << 40) - 1 - eb)
+        order = np.argsort(key, kind='stable')
+    else:
+        order = np.lexsort((np.arange(len(eb)), -eb, eq))
+    eqs = eq[order]
+    newq = np.ones(len(eqs), dtype=bool)
+    newq[1:] = eqs[1:] != eqs[:-1]
+    pos = np.arange(len(eqs)) - np.maximum.accumulate(
+        np.where(newq, np.arange(len(eqs)), 0))
+    keepv = pos < max(0, cfg.v)
+    sel, eqs = order[keepv], eqs[keepv]
+    fields = {
+        'idy': emitted['idy'][sel], 'aln': emitted['aln'][sel],
+        'mis': emitted['mis'][sel], 'gap': emitted['gap'][sel],
+        'qst1': emitted['qst'][sel] + 1, 'qed': emitted['qed'][sel],
+        'sst1': emitted['sst'][sel] + 1, 'sed': emitted['sed'][sel],
+        'e': emitted['e'][sel], 'bit': emitted['bit'][sel],
+        'qlen': lens[eqs].astype(np.int64),
+        'slen': emitted['slen'][sel], 'qidx': wst + eqs}
+    qid_blob, qid_off = encode_blob(
+        [qry.ids[wst + r] for r in range(wend - wst)])
+    buf, ends = format_rows_native(
+        fields, eqs, qid_blob, qid_off, emitted['subj'][sel],
+        ref_blobs[0], ref_blobs[1], ref_blobs[2], ref_blobs[3])
+    return buf, ends, eqs
+
+
+def _emit_rows(fast_fmt, fast, rows_of: dict, lens, wst: int, wend: int,
+               qry: SeqDB, ref: SeqDB, cfg: SearchConfig) -> List[str]:
+    """A wave's m8 rows in query order: the fast path's formatted bytes
+    (``fast_fmt``, for the queries where ``fast``), and the policy loop's
+    rows (``rows_of``: query row -> row tuples), sorted by bit desc and
+    cut at v."""
+    out_rows = []
+    if fast_fmt is not None:
+        buf, ends, eqs = fast_fmt
+        starts_b = np.zeros(len(ends), dtype=np.int64)
+        starts_b[1:] = ends[:-1]
+        f_lo = np.searchsorted(eqs, np.arange(wend - wst))
+        f_hi = np.searchsorted(eqs, np.arange(wend - wst),
+                               side='right')
+    for r in range(wend - wst):
+        if fast_fmt is not None and fast[r]:
+            for i in range(f_lo[r], f_hi[r]):
+                out_rows.append(
+                    buf[starts_b[i]:ends[i]].decode())
+            continue
+        if r not in rows_of:
+            continue
+        rows = rows_of[r]
+        gi = wst + r
+        qlen = int(lens[r])
+        hid = qry.ids[gi]
+        rows.sort(key=lambda x: -x[9])
+        for row in rows[:max(0, cfg.v)]:
+            (idy, aln, mis, gap, qst1, qed, sst1, sed,
+             e, bit, j, slen) = row
+            out_rows.append(
+                '%s\t%s\t%s\t%d\t%d\t%d\t%d\t%d\t%d\t%d\t%s\t%f'
+                '\t%d\t%d\t%d\t%s\n' % (
+                    hid, ref.ids[j], _fmt_idy(idy), aln, mis, gap,
+                    qst1, qed, sst1, sed, f2s(e), float(bit),
+                    qlen, slen, gi, ref.headers[j]))
+    return out_rows
 
 
 class IndexSource:
@@ -524,11 +752,24 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
     # Candidates); =multidb fans it out over resident shards (phase A)
     import os as _os
     _cand_mode = _os.environ.get('SWIFTORTHO_CANDIDATES', '')
+    # the device wave (search.device_wave): candidates, rank, packing,
+    # alignment and the policy's fast path stay on ``device``, with the
+    # pair-packing route, no search mesh and no spill directory
+    from ..parallel.mesh import active_search_mesh
+    dwave = None
     if _cand_mode == 'device':
         from functools import partial
 
-        from .candidates_device import generate_candidates_device
-        _gen_cands = partial(generate_candidates_device, device=device)
+        from .candidates_device import (generate_candidates_device,
+                                        generate_candidates_tensors)
+        if (pack_ctx.active() and spill_dir is None
+                and active_search_mesh() is None):
+            from .device_wave import DeviceWave
+            dwave = DeviceWave(qry, ref, cfg, pack_ctx, vmax, ref_blobs,
+                               use_prepass(device))
+            _gen_cands = partial(generate_candidates_tensors, device=device)
+        else:
+            _gen_cands = partial(generate_candidates_device, device=device)
     else:
         _gen_cands = generate_candidates
 
@@ -793,6 +1034,9 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
 
         cands: List[Candidates] = spill.take(wi)
         _t_cand = _time.time()
+        if dwave is not None:
+            return dwave.run(wst, wend, toks, lens, cands, _t0, _t_seg,
+                             _t_cand, _launch0)
 
         qrow = np.concatenate([c.qrow for c in cands])
         subj = np.concatenate([c.subject for c in cands])
@@ -844,28 +1088,7 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         is_long = (lq_all >= LONG_SEQ_TILE) | (ls_all >= LONG_SEQ_TILE)
         n_pairs = len(qrow)
 
-        # Staged alignment: the reference's sequential loop stops after
-        # mmiss (<=120) consecutive misses, so most queries never look past
-        # their first ~160 candidates; align that rung first and climb the
-        # ladder only for queries whose stop condition is unresolved.
-        # Rung sizes are tunable (SWIFTORTHO_ALIGN_STAGES="160" default);
-        # measured on the 40k corpus, a lower first rung (64) makes ~60%
-        # of queries escalate (stop ranks are deep when corpora are dense)
-        # and the extra dispatch rounds cost more than the saved cells.
-        _stages_env = _os.environ.get('SWIFTORTHO_ALIGN_STAGES', '160')
-        STAGES = tuple(int(s) for s in _stages_env.split(',') if s)
-        # the per-query miss bound (the reference's mmiss clamp,
-        # fsearch.py:3052-3054) — needed here because the first rung
-        # must cover the typical stop rank (~true hits + mmiss): on
-        # dense corpora (many taxa) mmiss clamps to 120 and stops land
-        # past a fixed 160, which would send almost every query to the
-        # full-tail rung.  Schedule-only: output never depends on rungs.
-        mm = nhits_of * max(cfg.max_miss, 1e-3) + 1.0
-        mm = np.maximum(mm, 100.0 / mm)
-        mm = np.minimum(np.maximum(mm, 10), 120)
-        rung0 = int(max(STAGES[0],
-                        (mm.max() if len(mm) else 0) + STAGES[0] / 2))
-        ladder = [s for s in STAGES[1:] if s > rung0] + [None]
+        mm, rung0, ladder = _rungs(nhits_of, cfg)
         aligned = np.zeros(n_pairs, dtype=bool)
         full = {k: np.zeros(n_pairs, dtype=np.int64)
                 for k in ('aln', 'mis', 'gap', 'qst', 'qed', 'sst', 'sed',
@@ -921,106 +1144,19 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         route['gathered'] += long_tiles
 
         def policy_rows(sel, r):
-            """Run the reference's sequential accept/stop loop; returns
-            (rows, resolved) — unresolved when an unaligned candidate is
-            reached before the stop condition triggers."""
-            qlen = int(lens[r])
-            nhits = int(nhits_of[r])
-            # the reference clamps max_miss itself before use
-            # (fsearch.py:2970: max_miss = max(max_miss, 1e-3))
-            mmiss = nhits * max(cfg.max_miss, 1e-3) + 1
-            mmiss = max(mmiss, 100.0 / mmiss)
-            mmiss = min(max(mmiss, 10), 120)
-            unmch = 0
-            bv = 0
-            rows = []
-            for p in sel:
-                j = int(subj[p])
-                slen = int(ls_all[p])
-                if not is_long[p]:
-                    if not aligned[p]:
-                        return rows, False
-                    bit = int(full['bit'][p])
-                    e = D * qlen * slen * (2.0 ** -bit)
-                    if e <= cfg.expect:
-                        rows.append((
-                            float(full['idy'][p]), int(full['aln'][p]),
-                            int(full['mis'][p]), int(full['gap'][p]),
-                            int(full['qst'][p]) + 1, int(full['qed'][p]),
-                            int(full['sst'][p]) + 1, int(full['sed'][p]),
-                            e, bit, j, slen))
-                        unmch = 0
-                        bv += 1
-                    else:
-                        unmch += 1
-                else:
-                    hit_any = False
-                    for tile in long_rows[p]:
-                        bit = tile['bit']
-                        e = D * qlen * slen * (2.0 ** -bit)
-                        if e <= cfg.expect:
-                            rows.append((tile['idy'], tile['aln'],
-                                         tile['mis'], tile['gap'],
-                                         tile['qst'] + 1, tile['qed'],
-                                         tile['sst'] + 1, tile['sed'],
-                                         e, bit, j, slen))
-                            hit_any = True
-                            bv += 1
-                    if hit_any:
-                        unmch = 0
-                    else:
-                        unmch += 1
-                if unmch >= mmiss or bv >= cfg.v + mmiss:
-                    break
-            return rows, True
+            return _policy_rows(sel, int(lens[r]), int(nhits_of[r]), subj,
+                                ls_all, is_long, aligned, full, long_rows,
+                                D, cfg)
 
-        # --- per-query policy + output (qrow is sorted) ---
-        # Vectorized fast path: for queries without long pairs, the
-        # sequential accept/stop loop reduces to segment ops — miss-run
-        # length is rank minus the last passing rank (segmented cummax),
-        # the stop position is the first rank where the miss-run or the
-        # hit count crosses its bound, and the emitted rows are exactly
-        # the passing ranks up to the stop.  A query is resolved by the
-        # fast path only when its stop falls inside the aligned prefix;
-        # everything else (long pairs, unresolved stops) runs the exact
-        # Python loop below, so output is unchanged — only the per-
-        # candidate Python iteration is skipped for the common case.
-        nq_w = wend - wst
-        q_lo = np.searchsorted(qrow, np.arange(nq_w))
-        q_hi = np.searchsorted(qrow, np.arange(nq_w), side='right')
-        seg_len = q_hi - q_lo
-        present = seg_len > 0
-        has_long = np.zeros(nq_w, dtype=bool)
-        if is_long.any():
-            has_long[qrow[is_long]] = True
-
+        # --- per-query policy + output (qrow is sorted): the vectorised
+        # fast path, then the exact loop for the queries it leaves ---
         e_all = (D * lq_all * ls_all
                  * np.power(2.0, -full['bit'].astype(np.float64)))
         pass_all = (e_all <= cfg.expect) & aligned
-        csum = np.cumsum(pass_all)
-        base = np.zeros(nq_w, dtype=np.int64)
-        if present.any():
-            base[present] = (csum[q_lo[present]]
-                             - pass_all[q_lo[present]])
-        hits_cum = csum - base[qrow] if n_pairs else csum
-        BIGR = np.int64(1) << 40
-        val = np.where(pass_all, rank, -1)
-        gv = qrow * (BIGR * 2) + val
-        last_hit = np.maximum.accumulate(gv) - qrow * (BIGR * 2)
-        miss_run = rank - last_hit
-        stop = ((miss_run >= mm[qrow])
-                | (hits_cum >= cfg.v + mm[qrow]))
-        s_idx = np.where(stop, rank, BIGR)
-        first_stop = np.full(nq_w, BIGR, dtype=np.int64)
-        if present.any():
-            first_stop[present] = np.minimum.reduceat(s_idx, q_lo[present])
-        prefix = np.minimum(seg_len, rung0)
-        fast = present & ~has_long & (
-            (first_stop < prefix)
-            | ((first_stop == BIGR) & (seg_len <= prefix)))
+        fast, emit, q_lo, q_hi, present = _fast_policy(
+            qrow, rank, pass_all, is_long, wend - wst, mm, rung0, cfg.v)
 
         rows_of = {}
-        emit = pass_all & fast[qrow] & (rank <= first_stop[qrow])
         emit_idx = np.flatnonzero(emit)
         # fast-path rows go straight from arrays to formatted bytes via
         # the native formatter (fmtrows.cpp, char-for-char the Python
@@ -1028,37 +1164,11 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
         # order on ties, like list.sort), top-v cut, one threaded call.
         fast_fmt = None
         try:
-            from ..native import encode_blob, format_rows_native
-            eb = full['bit'][emit_idx]
-            eq = qrow[emit_idx]
-            if (len(eb) == 0 or (eb.min() >= 0 and eb.max() < (1 << 40)
-                                 and (wend - wst) <= (1 << 22))):
-                key = (eq.astype(np.int64) << 40) | ((1 << 40) - 1 - eb)
-                order = np.argsort(key, kind='stable')
-            else:
-                order = np.lexsort((np.arange(len(eb)), -eb, eq))
-            sel = emit_idx[order]
-            eqs = eq[order]
-            newq = np.ones(len(eqs), dtype=bool)
-            newq[1:] = eqs[1:] != eqs[:-1]
-            pos = np.arange(len(eqs)) - np.maximum.accumulate(
-                np.where(newq, np.arange(len(eqs)), 0))
-            keepv = pos < max(0, cfg.v)
-            sel, eqs = sel[keepv], eqs[keepv]
-            fields = {
-                'idy': full['idy'][sel], 'aln': full['aln'][sel],
-                'mis': full['mis'][sel], 'gap': full['gap'][sel],
-                'qst1': full['qst'][sel] + 1, 'qed': full['qed'][sel],
-                'sst1': full['sst'][sel] + 1, 'sed': full['sed'][sel],
-                'e': e_all[sel], 'bit': full['bit'][sel],
-                'qlen': lens[eqs].astype(np.int64),
-                'slen': ls_all[sel], 'qidx': wst + eqs}
-            qid_blob, qid_off = encode_blob(
-                [qry.ids[wst + r] for r in range(wend - wst)])
-            buf, ends = format_rows_native(
-                fields, eqs, qid_blob, qid_off, subj[sel],
-                ref_blobs[0], ref_blobs[1], ref_blobs[2], ref_blobs[3])
-            fast_fmt = (buf, ends, eqs)
+            emitted = {k: full[k][emit_idx] for k in full}
+            emitted.update(qrow=qrow[emit_idx], subj=subj[emit_idx],
+                           e=e_all[emit_idx], slen=ls_all[emit_idx])
+            fast_fmt = _format_fast(emitted, lens, wst, wend, qry,
+                                    ref_blobs, cfg)
         except Exception:
             # no compiler: fast rows fall back to python tuples below
             for p in emit_idx:
@@ -1121,37 +1231,8 @@ def blastp_stream(qry: SeqDB, ref: SeqDB, cfg: SearchConfig,
                   long_pairs=len(long_rows), long_tiles=long_tiles,
                   sw_launches={k: _cu.launches[k] - v
                                for k, v in _launch0.items()})
-        out_rows = []
-        if fast_fmt is not None:
-            buf, ends, eqs = fast_fmt
-            starts_b = np.zeros(len(ends), dtype=np.int64)
-            starts_b[1:] = ends[:-1]
-            f_lo = np.searchsorted(eqs, np.arange(wend - wst))
-            f_hi = np.searchsorted(eqs, np.arange(wend - wst),
-                                   side='right')
-        for r in range(wend - wst):
-            if fast_fmt is not None and fast[r]:
-                for i in range(f_lo[r], f_hi[r]):
-                    out_rows.append(
-                        buf[starts_b[i]:ends[i]].decode())
-                continue
-            if r not in rows_of:
-                continue
-            rows = rows_of[r]
-            gi = wst + r
-            qlen = int(lens[r])
-            hid = qry.ids[gi]
-            rows.sort(key=lambda x: -x[9])
-            for row in rows[:max(0, cfg.v)]:
-                (idy, aln, mis, gap, qst1, qed, sst1, sed,
-                 e, bit, j, slen) = row
-                out_rows.append(
-                    '%s\t%s\t%s\t%d\t%d\t%d\t%d\t%d\t%d\t%d\t%s\t%f'
-                    '\t%d\t%d\t%d\t%s\n' % (
-                        hid, ref.ids[j], _fmt_idy(idy), aln, mis, gap,
-                        qst1, qed, sst1, sed, f2s(e), float(bit),
-                        qlen, slen, gi, ref.headers[j]))
-        return out_rows
+        return _emit_rows(fast_fmt, fast, rows_of, lens, wst, wend, qry,
+                          ref, cfg)
 
     # wave pipeline width: >1 overlaps wave N+1's host work with wave
     # N's device waits (results still emitted in wave order).  Serial by

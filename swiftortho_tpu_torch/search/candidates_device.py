@@ -9,7 +9,9 @@ Port of ``swiftortho_tpu/search/candidates_device.py`` (``_stage1_seeds``
 equal the host ``swiftortho_tpu.search.candidates.generate_candidates``
 (the reference ``find_msav_m``, lib/fsearch.py:2645-2724), array for
 array; the min-score gate and the best-per-subject pick run on the host
-in the shared ``_finish_candidates``.
+in the shared ``_finish_candidates``, or, for the device wave
+(``generate_candidates_tensors``, ``search.device_wave``), on the device
+in ``finish_candidates_tensors``.
 
 Where torch differs from XLA, and what this module does:
 - FNV-1a in int64 with a 32-bit mask (``ops.index_device.fnv_step``);
@@ -53,6 +55,7 @@ are cached under a lock: phase A calls the engine from
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import weakref
@@ -473,6 +476,84 @@ def generate_candidates_device(q_tokens: np.ndarray, q_lengths: np.ndarray,
     host engine, with a ``device_candidates_fallback`` event, when the
     packed-key ranges do not hold or one query's postings exceed the
     cap."""
+    out = _chain_groups(q_tokens, q_lengths, db, index, alphabets, ssps,
+                        device, fetch=True)
+    if isinstance(out, Candidates):
+        return out
+    return _finish_candidates(*out)
+
+
+def generate_candidates_tensors(q_tokens: np.ndarray,
+                                q_lengths: np.ndarray, db: SeqDB,
+                                index: SeedIndex, alphabets: list,
+                                ssps: str,
+                                device: torch.device | None = None
+                                ) -> Candidates:
+    """``generate_candidates_device`` without the fetch: the same
+    Candidates as int64 tensors on ``device``, finished there
+    (``finish_candidates_tensors``).  A host fallback's arrays are
+    copied to ``device``."""
+    device = get_device() if device is None else torch.device(device)
+    out = _chain_groups(q_tokens, q_lengths, db, index, alphabets, ssps,
+                        device, fetch=False)
+    if isinstance(out, Candidates):
+        return Candidates(*(
+            torch.as_tensor(np.asarray(getattr(out, f.name), np.int64),
+                            device=device)
+            for f in dataclasses.fields(out)))
+    return finish_candidates_tensors(*out)
+
+
+def finish_candidates_tensors(g_qrow: torch.Tensor, g_sid: torch.Tensor,
+                              g_diag: torch.Tensor, totalsc: torch.Tensor
+                              ) -> Candidates:
+    """``candidates._finish_candidates`` in torch, on the tensors' device:
+    the min-score gate, the best chain per (query, subject) by the same
+    packed 62-bit key and a stable sort (or, where the key's ranges do
+    not hold, successive stable sorts in ``np.lexsort``'s order), and the
+    band anchor.  Equal to the numpy function, array for array."""
+    ok = totalsc >= MIN_CHAIN_SCORE
+    g_qrow, g_sid, g_diag, totalsc = (g_qrow[ok].long(), g_sid[ok].long(),
+                                      g_diag[ok].long(), totalsc[ok].long())
+    if totalsc.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=totalsc.device)
+        return Candidates(z, z, z, z, z)
+    cap = 1 << 17
+    lims = torch.stack([g_sid.max(), g_qrow.max(), totalsc.max()]).tolist()
+    if lims[0] < (1 << 21) and lims[1] < (1 << 13) and lims[2] < cap:
+        key = ((((g_qrow << 21) | g_sid) << 17) | (cap - 1 - totalsc)
+               ) << 11 | ((g_diag + 8192) & 0x7FF)
+        order = torch.sort(key, stable=True).indices
+    else:
+        order = stable_lexsort((g_diag, -totalsc, g_sid, g_qrow))
+    g_qrow, g_sid, g_diag, totalsc = (g_qrow[order], g_sid[order],
+                                      g_diag[order], totalsc[order])
+    first = torch.ones(g_qrow.shape[0], dtype=torch.bool,
+                       device=g_qrow.device)
+    first[1:] = (g_qrow[1:] != g_qrow[:-1]) | (g_sid[1:] != g_sid[:-1])
+    g_qrow, g_sid, g_diag, totalsc = (g_qrow[first], g_sid[first],
+                                      g_diag[first], totalsc[first])
+    band_q = torch.where(g_diag > 0, g_diag, 0)
+    band_s = torch.where(g_diag > 0, 0, -g_diag)
+    return Candidates(g_qrow, g_sid, totalsc, band_q, band_s)
+
+
+def stable_lexsort(keys) -> torch.Tensor:
+    """``np.lexsort(keys)`` of 1-D tensors (the last key primary): one
+    stable sort a key, from the first (least significant) to the last."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.sort(k[order], stable=True).indices]
+    return order
+
+
+def _chain_groups(q_tokens, q_lengths, db, index, alphabets, ssps, device,
+                  fetch: bool):
+    """Stages 1 and 2 of the engine for one wave and chunk: the
+    (qrow, sid, diag, chain score) groups that pass the min-score gate,
+    numpy arrays when ``fetch`` else int64 tensors on ``device``, or the
+    finished host ``Candidates`` of a fallback or of a wave without
+    postings.  Logs the ``device_candidates`` event."""
     if not device_path_supported(q_tokens, db, index):
         log_event('device_candidates_fallback', reason='range',
                   shape=list(q_tokens.shape))
@@ -517,13 +598,15 @@ def generate_candidates_device(q_tokens: np.ndarray, q_lengths: np.ndarray,
             buckets[:, blo:bhi], counts[:, blo:bhi], q_dev[blo:bhi],
             qlen_dev[blo:bhi], start, sid, sst, db_tokens, db_offsets,
             btot, WALK_CHUNK, clock, stats)
-        res = out4.cpu().numpy()
-        res[0] += blo
-        parts.append(res)
+        if fetch:
+            out4 = out4.cpu().numpy()
+        out4[0] += blo
+        parts.append(out4)
         clock.mark('fetch')
-    g_qrow, g_sid, g_diag, score = np.concatenate(parts, axis=1)
+    groups = (np.concatenate(parts, axis=1) if fetch
+              else torch.cat(parts, 1))
     log_event('device_candidates', device=str(device), queries=B, L=L,
               postings=total, max_row_postings=int(row_tot.max()),
-              blocks=len(blocks), passing_groups=len(g_qrow), **stats,
-              **clock.rounded())
-    return _finish_candidates(g_qrow, g_sid, g_diag, score)
+              blocks=len(blocks), passing_groups=int(groups.shape[1]),
+              **stats, **clock.rounded())
+    return tuple(groups)
