@@ -27,6 +27,12 @@ computed with the JAX package on the CPU):
   first stage-2 row block of that 41k wave and edge points, then both
   timed beside the kernel's bound; the device routes must launch it
   twice a row block;
+- the accept-rounds kernel (``accept_parity``) against the engine's
+  plain rounds (``accept_rounds``) on the card, bit for bit: the first
+  stage-2 row block of that 41k wave and edge inputs, with no host read
+  inside the kernel's call (``torch.cuda.set_sync_debug_mode('error')``),
+  then both timed beside the kernel's bound; the device routes must
+  launch it once a row block;
 - find_orth on that table, and find_cluster on the orthology graph it
   writes (mcl on cuda and cpu, textbook apc and sap on cuda, twice each,
   and the host's faithful apc): output md5s;
@@ -95,14 +101,15 @@ Imports no JAX and nothing of the JAX package (``swiftortho_tpu``): the
 C++ oracle, the corpus and the pan-genome code are the port's own copies.
 Each phase prints one JSON line: device, build, kernel_parity,
 kernel_time, search_parity, device_search_parity, search,
-device_components, walk_parity, search_device, orth, cluster_parity,
-cluster_scale, multichip, pipeline, multichunk, long_pairs, scale,
-kernel_time_paths, tools.  Any failed check exits nonzero before the
-result lines; every child process has a timeout.  The last three lines
-are the card's ``nvidia-smi --query-gpu=name,power.limit
+device_components, walk_parity, accept_parity, search_device, orth,
+cluster_parity, cluster_scale, multichip, pipeline, multichunk,
+long_pairs, scale, kernel_time_paths, tools.  Any failed check exits
+nonzero before the result lines; every child process has a timeout.  The
+last three lines are the card's ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` line, the kernels JSON object (the banded SW's
-two variants and, but with ``--scale``, whose path does not walk on the
-card, the x-drop walk) and {"ok": true, "device": {...}}.
+two variants and, but with ``--scale``, whose path does not run the
+device engine, the x-drop walk and the accept rounds) and {"ok": true,
+"device": {...}}.
 """
 
 import contextlib
@@ -131,6 +138,19 @@ WALK_REPLACES = 'swiftortho_tpu/search/candidates_device.py:169'
 # and one int64 read, two int32 written); PERF.md lists them
 WALK_OPS_PER_STEP = 12
 WALK_POINT_BYTES = 48
+# the accept-rounds kernel replaces plain JAX as well: the engine's
+# while_loop of segmented scans over a row block's points
+ACCEPT_SOURCE = 'swiftortho_tpu_torch/csrc/accept_rounds.cu'
+ACCEPT_REPLACES = 'swiftortho_tpu/search/candidates_device.py:241'
+# the least bytes of one point (two bool flags read, a bool and an int32
+# qlo_rec written: 7), with an int32 qst read for a valid point and an
+# int32 E for an accepted one (the JAX reference's width), and its least
+# integer operations (the flag test, the validity test, the cover
+# compare, the max, the count); PERF.md lists them
+ACCEPT_POINT_BYTES = 7
+ACCEPT_VALID_BYTES = 4
+ACCEPT_ACCEPTED_BYTES = 4
+ACCEPT_OPS_PER_POINT = 5
 # the 10-genome configuration of BASELINE.md and its m8 digest from the
 # JAX package (host path, SearchConfig defaults = CLI defaults)
 BIG = dict(n_taxa=10, n_families=4000, seed=42)
@@ -273,7 +293,8 @@ def phase_device(torch):
 def ptxas_summary(lines):
     """Registers, shared memory and spill bytes per kernel (banded SW:
     statistics on/off, lanes per pair; the x-drop walk: one thread a
-    point) from the ptxas report lines."""
+    point; the accept rounds: one thread a segment) from the ptxas report
+    lines."""
     import re
     out, cur = [], None
     for ln in lines:
@@ -284,6 +305,9 @@ def ptxas_summary(lines):
             out.append(cur)
         elif 'Compiling entry' in ln and 'xdrop_walk_kernel' in ln:
             cur = {'variant': 'xdrop_walk', 'lanes': 1}
+            out.append(cur)
+        elif 'Compiling entry' in ln and 'accept_rounds_kernel' in ln:
+            cur = {'variant': 'accept_rounds', 'lanes': 1}
             out.append(cur)
         elif cur is not None:
             for key, pat in (('registers', r'Used (\d+) registers'),
@@ -311,7 +335,7 @@ def phase_build():
     host.join()
     info = _build.build_info()
     kernels = ptxas_summary(info['ptxas'])
-    built = KERNELS + [('xdrop_walk', 1)]
+    built = KERNELS + [('xdrop_walk', 1), ('accept_rounds', 1)]
     check(sorted((k['variant'], k['lanes']) for k in kernels)
           == sorted(built) and all('registers' in k for k in kernels),
           'ptxas report lacks the kernels %s: %s' % (built, info['ptxas']))
@@ -726,8 +750,10 @@ def phase_search_parity(tmp):
 def phase_device_search_parity(tmp, torch):
     """The device routes on SMALL on cuda: each alone, all three, a
     partial pair table (hot-set pick) and a posting cap that cuts stage 2
-    into >= 4 row blocks; every .sc md5 equal to the JAX package's."""
+    into >= 4 row blocks; every .sc md5 equal to the JAX package's.
+    Returns the launches of the x-drop walk and accept-rounds kernels."""
     from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops import accept_rounds_cuda as ar
     from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
     from swiftortho_tpu_torch.ops.device_pack import DevicePackContext
     fsa = os.path.join(tmp, 'small.fsa')
@@ -742,6 +768,7 @@ def phase_device_search_parity(tmp, torch):
     rows, postings = [], None
     t_phase = time.time()
     xw.reset_counters()
+    ar.reset_counters()
     for name, env in runs + [('cand_row_blocks', None)]:
         if env is None:
             # cap: at most a fifth of the wave's postings (>= 5 blocks),
@@ -777,12 +804,14 @@ def phase_device_search_parity(tmp, torch):
                   % (env['SWIFTORTHO_DEVICE_CAND_CAP'], chunked))
             row['blocks'] = [e['blocks'] for e in chunked]
         rows.append(row)
-    check(xw.launches > 0, 'the device candidate routes launched no '
-          'x-drop walk kernel')
+    check(xw.launches > 0 and xw.launches == 2 * ar.launches,
+          'the device candidate routes launched the x-drop walk kernel %d '
+          'and the accept-rounds kernel %d times (two walks and one accept '
+          'a row block)' % (xw.launches, ar.launches))
     emit('device_search_parity', sequences=len(db), runs=rows,
-         xdrop_walk_launches=xw.launches,
+         xdrop_walk_launches=xw.launches, accept_rounds_launches=ar.launches,
          seconds=round(time.time() - t_phase, 3))
-    return xw.launches
+    return xw.launches, ar.launches
 
 
 def phase_search(tmp, torch):
@@ -821,23 +850,24 @@ def phase_search(tmp, torch):
 
 
 @contextlib.contextmanager
-def recording_walks(cd, store):
-    """Record in ``store``, by step, the arguments of the engine's first
-    walk in each direction (the first row block's right and left walks),
-    cloned, while the walks run as they would."""
-    real = cd.walk
+def recording(cd, name, key, store):
+    """Record in ``store``, under ``key(args)``, the arguments of the first
+    call of the engine's function ``name`` for each key, cloned, while the
+    calls run as they would: ``walk`` by step (the first row block's right
+    and left walks), ``accept`` once (the first row block's)."""
+    real = getattr(cd, name)
 
-    def walk(*args):
-        step = args[10]
-        if step not in store:
-            store[step] = tuple(a.clone() if hasattr(a, 'clone') else a
-                                for a in args)
+    def call(*args):
+        k = key(args)
+        if k not in store:
+            store[k] = tuple(a.clone() if hasattr(a, 'clone') else a
+                             for a in args)
         return real(*args)
-    cd.walk = walk
+    setattr(cd, name, call)
     try:
         yield
     finally:
-        cd.walk = real
+        setattr(cd, name, real)
 
 
 def phase_device_components(tmp, np, torch):
@@ -845,11 +875,13 @@ def phase_device_components(tmp, np, torch):
     host build_index (its tensors on the card, then its fetched arrays),
     and the device engine on the first 4,096-query wave against the host
     engine (twice: cold, then warm; no host fetch of the index), with
-    stage times and the x-drop walk kernel's launches.  Returns the
-    arguments of the cold run's first right and left walks, by step, and
-    those launches."""
+    stage times and the launches of the x-drop walk kernel (two a row
+    block) and of the accept-rounds kernel (one a row block).  Returns
+    the arguments of the cold run's first right and left walks, by step,
+    and of its first accept rounds, and the launches of both kernels."""
     from swiftortho_tpu_torch.config import SearchConfig
     from swiftortho_tpu_torch.io_fasta import SeqDB
+    from swiftortho_tpu_torch.ops import accept_rounds_cuda as ar
     from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
     from swiftortho_tpu_torch.ops.index import build_index
     from swiftortho_tpu_torch.ops.index_device import build_index_device
@@ -896,8 +928,9 @@ def phase_device_components(tmp, np, torch):
     t0 = time.time()
     want = generate_candidates(toks, lens, db, host, alphabets, cfg.seeds)
     host_cand_s = time.time() - t0
-    runs, walks = [], {}
+    runs, walks, accepts = [], {}, {}
     xw.reset_counters()
+    ar.reset_counters()
     for rep in range(2):
         buf = io.StringIO()
         torch.cuda.synchronize()
@@ -905,7 +938,10 @@ def phase_device_components(tmp, np, torch):
         with contextlib.ExitStack() as stack:
             stack.enter_context(contextlib.redirect_stderr(buf))
             if rep == 0:
-                stack.enter_context(recording_walks(cd, walks))
+                stack.enter_context(recording(cd, 'walk', lambda a: a[10],
+                                              walks))
+                stack.enter_context(recording(cd, 'accept',
+                                              lambda a: 'accept', accepts))
             got = cd.generate_candidates_device(toks, lens, db, dev,
                                                 alphabets, cfg.seeds,
                                                 device=cuda)
@@ -928,10 +964,14 @@ def phase_device_components(tmp, np, torch):
         check(np.array_equal(getattr(host, f), getattr(dev, f)),
               'device index %s, fetched, != host build_index' % f)
     walk_launches = {'launches': xw.launches, 'points': xw.points}
+    accept_launches = {'launches': ar.launches, 'points': ar.points}
     blocks = sum(r['blocks'] for r in runs)
     check(walk_launches['launches'] == 2 * blocks,
           'x-drop walk kernel launched %s times for %d row blocks (two '
           'walks a block)' % (walk_launches, blocks))
+    check(accept_launches['launches'] == blocks,
+          'accept-rounds kernel launched %s times for %d row blocks (one '
+          'a block)' % (accept_launches, blocks))
     emit('device_components', sequences=len(db), index_T=idx_ev['T'],
          postings=idx_ev['postings'], threshold=dev.threshold,
          index_equal=True, index_on_card=True, engine_host_fetches=0,
@@ -941,8 +981,9 @@ def phase_device_components(tmp, np, torch):
                               if k.endswith('_s')},
          wave=[nq, pad], candidates=len(want.subject), candidates_equal=True,
          host_candidates_s=round(host_cand_s, 4), device_candidates=runs,
-         xdrop_walk=walk_launches)
-    return walks, walk_launches['launches']
+         xdrop_walk=walk_launches, accept_rounds=accept_launches)
+    return (walks, accepts['accept'], walk_launches['launches'],
+            accept_launches['launches'])
 
 
 def walk_edge_points(np, torch, step, device):
@@ -1108,6 +1149,96 @@ def phase_walk_parity(np, torch, walks, rates):
     return main
 
 
+def accept_edge_cases(torch, device):
+    """The accept rounds' edge inputs of ``ops/accept_rounds_cases.py``
+    (those the CPU tests hold the plain version to) at 40 times the
+    tests' scale, as tensors on ``device`` by name."""
+    from swiftortho_tpu_torch.ops.accept_rounds_cases import (CASES,
+                                                              make_case)
+    return {name: tuple(torch.from_numpy(x).to(device)
+                        for x in make_case(name, seed=11, scale=40))
+            for name in CASES}
+
+
+def phase_accept_parity(np, torch, block, rates):
+    """The accept-rounds kernel against the plain accept_rounds on the
+    card, bit for bit (acc, qlo_rec, rounds): the first stage-2 row block
+    of the 41k wave (the arguments recorded in device_components) and
+    edge inputs.  The engine's ``accept`` runs under
+    ``torch.cuda.set_sync_debug_mode('error')``, so a host read inside it
+    fails the run.  Then both timed with CUDA events in turns (plain,
+    kernel, kernel, plain), beside the bound: the larger of the block's
+    least bytes (ACCEPT_POINT_BYTES a point, ACCEPT_VALID_BYTES a valid
+    point, ACCEPT_ACCEPTED_BYTES an accepted one, and the round count)
+    over the memory rate and ACCEPT_OPS_PER_POINT a point over the ALU
+    rate.  Returns the kernel's row for the kernels line."""
+    from swiftortho_tpu_torch.ops import accept_rounds_cuda as ar
+    from swiftortho_tpu_torch.search import candidates_device as cd
+    t_phase = time.time()
+    cases = accept_edge_cases(torch, block[0].device)
+    cases['41k_block'] = block
+    rows, max_err = [], 0
+    for name, args in cases.items():
+        want = cd.accept_rounds(*args)
+        before = ar.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            acc, qlo, rounds = cd.accept(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        C = args[0].shape[0]
+        check(ar.launches == before + (C > 0), '%s: %d accept-rounds '
+              'launches for %d points' % (name, ar.launches - before, C))
+        bad = int(((acc != want[0]) | (qlo != want[1])).sum())
+        check(bad == 0 and int(rounds) == want[2],
+              '%s: the accept-rounds kernel differs from accept_rounds at '
+              '%d of %d points, rounds %d against %d'
+              % (name, bad, C, int(rounds), want[2]))
+        if C:
+            max_err = max(max_err, int((qlo - want[1]).abs().max()),
+                          int((acc != want[0]).sum()),
+                          abs(int(rounds) - want[2]))
+        starts = args[0].nonzero().squeeze(1)
+        seg_len = torch.diff(torch.cat([starts, starts.new_full((1,), C)]))
+        rows.append({'case': name, 'points': C,
+                     'segments': int(starts.numel()),
+                     'longest_segment': int(seg_len.max()) if C else 0,
+                     'accepted': int(want[0].sum()), 'rounds': want[2],
+                     'mismatches': 0})
+
+    C = block[0].shape[0]
+    fns = {'plain': (lambda: cd.accept_rounds(*block), 1),
+           'kernel': (lambda: ar.accept_rounds_cuda(*block), 20)}
+    samples = {k: [] for k in fns}
+    for _ in range(2):
+        for k in ('plain', 'kernel', 'kernel', 'plain'):
+            fn, n = fns[k]
+            samples[k].append(timed_ms(torch, fn, n))
+    ms = {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
+    n_valid, n_acc = int(block[1].sum()), rows[-1]['accepted']
+    nbytes = (ACCEPT_POINT_BYTES * C + ACCEPT_VALID_BYTES * n_valid
+              + ACCEPT_ACCEPTED_BYTES * n_acc + 4)
+    ops_ms = ACCEPT_OPS_PER_POINT * C / rates['int_ops_per_s'] * 1e3
+    bytes_ms = nbytes / rates['bytes_per_s'] * 1e3
+    main = {'ms': ms['kernel'], 'plain_ms': ms['plain'],
+            'bound_ms': max(ops_ms, bytes_ms),
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+            'max_abs_err': max_err,
+            'shape': {'points': C, 'valid': n_valid, 'accepted': n_acc}}
+    emit('accept_parity', tolerance=0, mismatches=0,
+         sync_debug_mode='error', cases=rows, timer='cuda events',
+         samples_ms=samples, bytes=nbytes, point_bytes=ACCEPT_POINT_BYTES,
+         valid_bytes=ACCEPT_VALID_BYTES,
+         accepted_bytes=ACCEPT_ACCEPTED_BYTES,
+         ops_per_point=ACCEPT_OPS_PER_POINT, rates=rates,
+         bound_share=main['bound_ms'] / ms['kernel'],
+         speedup=ms['plain'] / ms['kernel'], **main,
+         seconds=round(time.time() - t_phase, 3))
+    return main
+
+
 WAVE_SPLIT = ('rank_s', 'prep_s', 'run_s', 'pack_s', 'sw_s',
               'postprocess_s', 'policy_s', 'format_s', 'emit_s')
 
@@ -1116,11 +1247,12 @@ def phase_search_device(tmp, torch, default):
     """The 41k search with the three device routes: the .sc md5, no
     fallback, every pair packed on the card and both kernel variants
     launched through the packed route, the x-drop walk kernel launched
-    twice a stage-2 row block (the right and the left walk), the device
-    wave's split summed over the waves (host seconds by part; ``pack_s``
-    and ``sw_s`` device seconds) and each wave's host reads; beside the
-    default route.  Returns the SW launches, their shapes and the walk
-    kernel's launches."""
+    twice a stage-2 row block (the right and the left walk) and the
+    accept-rounds kernel once, the device wave's split summed over the
+    waves (host seconds by part; ``pack_s`` and ``sw_s`` device seconds)
+    and each wave's host reads; beside the default route.  Returns the SW
+    launches, their shapes and the walk and accept kernels' launches."""
+    from swiftortho_tpu_torch.ops import accept_rounds_cuda as ar
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     from swiftortho_tpu_torch.ops import device_pack
     from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
@@ -1130,10 +1262,12 @@ def phase_search_device(tmp, torch, default):
     torch.cuda.reset_peak_memory_stats()
     cu.reset_counters()
     xw.reset_counters()
+    ar.reset_counters()
     device_pack.reset_prof()
     wall, events = run_find_hit(fsa, out, 'cuda', **DEVICE_ROUTES)
     launches = dict(cu.launches)
     walk = {'launches': xw.launches, 'points': xw.points}
+    accept = {'launches': ar.launches, 'points': ar.points}
     aligned = dict(cu.pairs)
     shapes = {k: dict(v) for k, v in cu.shapes.items()}
     packed_calls = dict(device_pack.PROF['calls'])
@@ -1155,6 +1289,9 @@ def phase_search_device(tmp, torch, default):
     check(blocks > 0 and walk['launches'] == 2 * blocks,
           'x-drop walk kernel launched %s times for %d stage-2 row blocks'
           % (walk, blocks))
+    check(accept['launches'] == blocks,
+          'accept-rounds kernel launched %s times for %d stage-2 row blocks'
+          % (accept, blocks))
     waves = [e for e in events if e['stage'] == 'search_wave']
     pa = [e for e in events if e['stage'] == 'search_phaseA']
     check(waves and pa, 'search logged no waves or no phase A')
@@ -1178,12 +1315,13 @@ def phase_search_device(tmp, torch, default):
                esc_rounds=[w['esc_rounds'] for w in waves],
                stages=stage_split(events), pairs_aligned=aligned,
                launches=launches, launch_shapes=shapes, xdrop_walk=walk,
-               stage2_blocks=blocks, peak_device_bytes=peak)
+               accept_rounds=accept, stage2_blocks=blocks,
+               peak_device_bytes=peak)
     emit('search_device', **res,
          default_route={k: default[k] for k in
                         ('wall_s', 'index_s', 'phaseA_s', 'align_s',
                          'policy_s', 'launches', 'peak_device_bytes')})
-    return launches, shapes, walk['launches']
+    return launches, shapes, walk['launches'], accept['launches']
 
 
 def profiled(torch, fn):
@@ -1881,9 +2019,11 @@ def phase_multichunk(tmp, torch):
     route; makedb then -D with strict streaming (no prefetch), blocks of
     two waves and a candidate spill (-T) that must end empty; and the
     three device routes.  Every .sc equals the JAX package's for -c
-    10000.  Returns (the launches of the three searches, their shapes)."""
+    10000.  Returns (the SW launches of the three searches, their shapes,
+    the device routes' walk and accept-rounds launches)."""
     import shutil
     from swiftortho_tpu_torch.cli.find_hit import main as find_hit
+    from swiftortho_tpu_torch.ops import accept_rounds_cuda as ar
     from swiftortho_tpu_torch.ops import banded_sw_cuda as cu
     from swiftortho_tpu_torch.ops import device_pack
     from swiftortho_tpu_torch.ops import xdrop_walk_cuda as xw
@@ -1944,10 +2084,14 @@ def phase_multichunk(tmp, torch):
             os.remove(os.path.join(mdir, f))
 
     xw.reset_counters()
+    ar.reset_counters()
     row, events = search('device_routes', **DEVICE_ROUTES)
     row['xdrop_walk_launches'] = walk_launches = xw.launches
-    check(walk_launches > 0, 'multichunk device routes launched no x-drop '
-          'walk kernel')
+    row['accept_rounds_launches'] = accept_launches = ar.launches
+    check(walk_launches > 0 and walk_launches == 2 * accept_launches,
+          'multichunk device routes launched the x-drop walk kernel %d and '
+          'the accept-rounds kernel %d times (two walks and one accept a '
+          'row block)' % (walk_launches, accept_launches))
     fb = [e for e in events if e['stage'] in FALLBACKS]
     check(not fb, 'multichunk device routes fell back: %s' % fb[:3])
     check(row['packed_pairs'] > 0 and row['gathered_pairs'] == 0
@@ -1962,7 +2106,7 @@ def phase_multichunk(tmp, torch):
          chunk=MULTICHUNK, sc_md5=BIG_C10000_SC_MD5, runs=runs,
          launches=launches, launch_shapes=shapes,
          seconds=round(time.time() - t_phase, 3))
-    return launches, shapes, walk_launches
+    return launches, shapes, walk_launches, accept_launches
 
 
 def wide_shapes(shapes, width=4096):
@@ -2253,25 +2397,32 @@ def main(argv=None):
             children = [pipe, start_example_run(tmp)]
             try:
                 phase_search_parity(tmp)
-                walk_by_route = {
-                    'device_search_parity':
-                        phase_device_search_parity(tmp, torch)}
+                walk_by_route, accept_by_route = {}, {}
+                (walk_by_route['device_search_parity'],
+                 accept_by_route['device_search_parity']) = \
+                    phase_device_search_parity(tmp, torch)
                 default = phase_search(tmp, torch)
                 launches = default['launches']
-                walks, walk_by_route['device_components'] = \
+                (walks, accept_block, walk_by_route['device_components'],
+                 accept_by_route['device_components']) = \
                     phase_device_components(tmp, np, torch)
-                walk = phase_walk_parity(np, torch, walks, card_rates(torch))
-                del walks
-                packed, packed_shapes, walk['launches'] = \
-                    phase_search_device(tmp, torch, default)
+                rates = card_rates(torch)
+                walk = phase_walk_parity(np, torch, walks, rates)
+                accept = phase_accept_parity(np, torch, accept_block, rates)
+                del walks, accept_block
+                (packed, packed_shapes, walk['launches'],
+                 accept['launches']) = phase_search_device(tmp, torch,
+                                                           default)
                 walk_by_route['device_routes'] = walk['launches']
+                accept_by_route['device_routes'] = accept['launches']
                 children.append(start_phasea_prep(tmp))
                 opc = phase_orth(tmp)
                 phase_cluster_parity(tmp, opc, torch)
                 phase_cluster_scale(np, torch)
                 multi = phase_multichip(tmp, opc, np, torch)
-                chunked, chunked_shapes, walk_by_route['multichunk'] = \
-                    phase_multichunk(tmp, torch)
+                (chunked, chunked_shapes, walk_by_route['multichunk'],
+                 accept_by_route['multichunk']) = phase_multichunk(tmp,
+                                                                   torch)
                 long_launches, long_shapes = phase_long_pairs(tmp, torch)
                 scale = phase_scale(tmp, '102k')
                 # the long tiles are full-statistics launches at width 4096
@@ -2322,6 +2473,15 @@ def main(argv=None):
                         'bound_ms': walk['bound_ms'],
                         'bound_by': walk['bound_by'], 'library_ms': None,
                         'shape': walk['shape']})
+        kernels.append({'name': 'accept_rounds', 'route': 'cuda',
+                        'source': ACCEPT_SOURCE, 'replaces': ACCEPT_REPLACES,
+                        'launches': accept['launches'],
+                        'launches_by_route': accept_by_route,
+                        'max_abs_err': accept['max_abs_err'],
+                        'ms': accept['ms'], 'plain_ms': accept['plain_ms'],
+                        'bound_ms': accept['bound_ms'],
+                        'bound_by': accept['bound_by'], 'library_ms': None,
+                        'shape': accept['shape']})
     emit('done', seconds=round(time.time() - T_START, 1))
     print(smi_line)
     print(json.dumps({'kernels': kernels}))

@@ -122,6 +122,9 @@ def load_kernels() -> ctypes.CDLL:
         lib.swt_banded_sw.restype = ci
         lib.swt_xdrop_walk.argtypes = [vp] * 12 + [ci] * 5 + [vp] * 4
         lib.swt_xdrop_walk.restype = ci
+        lib.swt_accept_rounds.argtypes = [vp] * 4 + [ctypes.c_longlong] \
+            + [vp] * 4
+        lib.swt_accept_rounds.restype = ci
         lib.swt_lanes_for.argtypes = [ci, ci]
         lib.swt_lanes_for.restype = ci
         lib.swt_cuda_error_string.argtypes = [ci]

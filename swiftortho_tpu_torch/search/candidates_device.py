@@ -43,6 +43,13 @@ Where torch differs from XLA, and what this module does:
   as ``WALK_BYTES`` of (points, WC) temporaries allow, dropping ended
   points after every WC-step chunk (one host read per chunk).  The
   points are independent, so both equal the lockstep walk.
+- the accept rounds (``accept``) run on CUDA tensors in a hand-written
+  kernel (``ops/accept_rounds_cuda.py``, ``csrc/accept_rounds.cu``): one
+  thread walks one group's points in order, which gives the rounds'
+  result in one launch with no host read (the round count stays on the
+  device until the engine logs its event).  On CPU tensors they run
+  ``accept_rounds``, the plain version: the JAX module's rounds over
+  two-level scans, with one host read a round.
 
 Each call logs a ``device_candidates`` event with the seconds of stage 1,
 expansion and sort, the right walk, the accept rounds, the left walk and
@@ -67,6 +74,7 @@ import torch
 from ..constants import B62_BYTES, MIN_CHAIN_SCORE, XDROP
 from ..device import StageClock, get_device, indexed
 from ..io_fasta import SeqDB
+from ..ops.accept_rounds_cuda import accept_rounds_cuda
 from ..ops.banded_sw import scoring_tables
 from ..ops.index import SeedIndex
 from ..ops.index_device import (BASIS, DeviceSeedIndex, fnv_step, shifted,
@@ -279,12 +287,13 @@ def accept_rounds(new_seg, valid_s, p_qst, E):
     fsearch.py:2679-2724) as parallel rounds: each round accepts the
     first still-uncovered point of every group, and the cover becomes
     its right-walk end E.  Returns (accepted, qlo_rec, rounds): qlo_rec
-    is the cover at acceptance (-1 marks a group's first point)."""
+    is the cover at acceptance (-1 marks a group's first point), in
+    ``p_qst``'s integer type."""
     dev = p_qst.device
     C = p_qst.shape[0]
     acc = torch.zeros(C, dtype=torch.bool, device=dev)
-    cov = torch.full((C,), -1, dtype=torch.int64, device=dev)
-    qlo_rec = torch.zeros(C, dtype=torch.int64, device=dev)
+    cov = torch.full((C,), -1, dtype=p_qst.dtype, device=dev)
+    qlo_rec = torch.zeros(C, dtype=p_qst.dtype, device=dev)
     rounds = 0
     while True:
         cand = valid_s & ~acc & (p_qst > cov)
@@ -298,7 +307,19 @@ def accept_rounds(new_seg, valid_s, p_qst, E):
         covE = seg_max_scan(new_seg, torch.where(firstc, E, -1))
         acc |= firstc
         qlo_rec = torch.where(firstc, cov, qlo_rec)
-        cov = torch.maximum(cov, covE)
+        cov = torch.maximum(cov, covE.to(cov.dtype))
+
+
+def accept(new_seg, valid_s, p_qst, E):
+    """``accept_rounds``' results by the tensors' device, with ``rounds``
+    a 0-d int32 tensor there: CPU tensors go to ``accept_rounds``, every
+    other device to the accept-rounds kernel (``accept_rounds_cuda``, one
+    launch and no host read; it raises on anything but CUDA tensors).
+    Nothing falls back from one to the other."""
+    if p_qst.device.type == 'cpu':
+        acc, qlo_rec, rounds = accept_rounds(new_seg, valid_s, p_qst, E)
+        return acc, qlo_rec, torch.tensor(rounds, dtype=torch.int32)
+    return accept_rounds_cuda(new_seg, valid_s, p_qst, E)
 
 
 def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
@@ -372,10 +393,10 @@ def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
     t_r = torch.full((total,), -1, dtype=torch.int32, device=dev)
     best_r[li] = br
     t_r[li] = tr
-    E = torch.where(t_r >= 0, p_qst + t_r, p_qst).long()
+    E = torch.where(t_r >= 0, p_qst + t_r, p_qst)
     clock.mark('right_walk')
 
-    acc, qlo_rec, rounds = accept_rounds(new_group, live, p_qst.long(), E)
+    acc, qlo_rec, rounds = accept(new_group, live, p_qst, E)
     clock.mark('accept')
 
     # left walks for the accepted points only (``nonzero`` keeps them in
@@ -385,8 +406,7 @@ def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
     best_c, _ = walk(
         qtok_flat, db_tokens, b62, L, WC, W, p_qrow[ai], p_soff[ai],
         p_qst[ai] - 1, s0[ai] - 1, -1, best_r[ai],
-        qlo_a.clamp(min=0).int(),
-        torch.where(qlo_a < 0, 0, qlo_a - p_diag[ai]).int(),
+        qlo_a.clamp(min=0), torch.where(qlo_a < 0, 0, qlo_a - p_diag[ai]),
         p_qlen[ai], p_slen[ai])
     totals = torch.zeros(n_groups, dtype=torch.int32, device=dev) \
         .index_add_(0, gid[ai], best_c)
@@ -399,7 +419,10 @@ def stage2_expand_chain(buckets, counts, q_tok, q_len, start, sid, sst,
     for k, v in (('groups', n_groups), ('right_walks', li.shape[0]),
                  ('left_walks', ai.shape[0])):
         stats[k] = stats.get(k, 0) + v
-    stats['accept_rounds'] = max(stats.get('accept_rounds', 0), rounds)
+    # the most rounds over the row blocks, kept on the engine's device
+    # and read once, where the engine logs its event
+    stats['accept_rounds'] = (torch.maximum(stats['accept_rounds'], rounds)
+                              if 'accept_rounds' in stats else rounds)
     return out
 
 
@@ -605,6 +628,7 @@ def _chain_groups(q_tokens, q_lengths, db, index, alphabets, ssps, device,
         clock.mark('fetch')
     groups = (np.concatenate(parts, axis=1) if fetch
               else torch.cat(parts, 1))
+    stats['accept_rounds'] = int(stats['accept_rounds'])
     log_event('device_candidates', device=str(device), queries=B, L=L,
               postings=total, max_row_postings=int(row_tot.max()),
               blocks=len(blocks), passing_groups=int(groups.shape[1]),

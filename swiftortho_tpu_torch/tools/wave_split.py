@@ -26,7 +26,12 @@ numpy wave body, ``align_pairs_s`` (``blastp._align_pairs``),
 (``ops.device_pack.PROF``) and ``emit_s`` (from a wave's
 ``search_wave`` event to its first row); ``cand_stages``, the device
 candidate engine's stage seconds summed over its calls (both producer
-threads); on a card, the search's peak device bytes.  The package is
+threads), and ``index_stages``, the device index build's; on a card,
+the search's peak device bytes.  With two searches or more, a last line
+``{"first_search_excess": {...}}`` gives, for the search's seconds, phase
+A's, each index and engine stage's and ``walks_s`` (both walks), the
+first search's seconds less the median of the later ones: what a fresh
+process's first kernels and allocations add to each stage.  The package is
 imported by its absolute name, so ``PYTHONPATH=<another tree> python
 <this file>`` measures that tree's search, an older numpy wave
 included.
@@ -38,6 +43,7 @@ import argparse
 import hashlib
 import json
 import os
+import statistics
 import tempfile
 import threading
 import time
@@ -65,7 +71,7 @@ def main(argv=None):
     from swiftortho_tpu_torch.corpus import make_corpus, write_corpus
     from swiftortho_tpu_torch.device import get_device
     from swiftortho_tpu_torch.io_fasta import SeqDB
-    from swiftortho_tpu_torch.ops import device_pack
+    from swiftortho_tpu_torch.ops import device_pack, index_device
     from swiftortho_tpu_torch.search import blastp, candidates_device
 
     fsa = args.fasta
@@ -108,7 +114,8 @@ def main(argv=None):
                (native, 'format_rows_native',
                 timed('format_native_s', native.format_rows_native)),
                (utils, 'log_event', spy),
-               (candidates_device, 'log_event', spy)]
+               (candidates_device, 'log_event', spy),
+               (index_device, 'log_event', spy)]
     try:
         from swiftortho_tpu_torch.search import device_wave
         patches.append((device_wave, 'log_event', spy))
@@ -118,17 +125,39 @@ def main(argv=None):
     for mod, name, fn in patches:
         setattr(mod, name, fn)
     try:
-        for k in range(args.searches):
-            _search(k, db, device, blastp, device_pack, SearchConfig,
-                    timers, events, lock)
+        lines = [_search(k, db, device, blastp, device_pack, SearchConfig,
+                         timers, events, lock)
+                 for k in range(args.searches)]
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+    if len(lines) >= 2:
+        print(json.dumps({'first_search_excess': first_search_excess(lines)}),
+              flush=True)
+
+
+def _stage_seconds(line: dict) -> dict:
+    """A search's seconds by stage: the search, phase A, each index and
+    engine stage, and both walks together."""
+    out = {'wall_s': line['wall_s'], 'phase_a_s': line['phase_a_s']}
+    out.update({'index_' + k: v for k, v in line['index_stages'].items()})
+    out.update(line['cand_stages'])
+    out['walks_s'] = (line['cand_stages'].get('right_walk_s', 0.0)
+                      + line['cand_stages'].get('left_walk_s', 0.0))
+    return out
+
+
+def first_search_excess(lines: list) -> dict:
+    """Per stage, the first search's seconds less the median of the
+    later searches' (a stage missing from a search counts 0)."""
+    first, *warm = [_stage_seconds(ln) for ln in lines]
+    return {k: round(v - statistics.median(w.get(k) or 0.0 for w in warm), 4)
+            for k, v in first.items() if v is not None}
 
 
 def _search(k, db, device, blastp, device_pack, SearchConfig, timers,
             events, lock):
-    """One search; prints its JSON line."""
+    """One search; prints its JSON line and returns it."""
     import torch
     device_pack.reset_prof()
     timers.clear()
@@ -170,9 +199,14 @@ def _search(k, db, device, blastp, device_pack, SearchConfig, timers,
     out['cand_stages'] = {
         key: round(sum(e.get(key, 0.0) for e in cand), 4)
         for key in (cand[0] if cand else ()) if key.endswith('_s')}
+    index = [kw for st, kw, _ in events if st == 'device_index']
+    out['index_stages'] = {
+        key: round(sum(e.get(key, 0.0) for e in index), 4)
+        for key in (index[0] if index else ()) if key.endswith('_s')}
     out['peak_device_bytes'] = (torch.cuda.max_memory_allocated(device)
                                 if device.type == 'cuda' else None)
     print(json.dumps(out), flush=True)
+    return out
 
 
 if __name__ == '__main__':

@@ -413,8 +413,9 @@ def test_cuda_device_wave_matches_numpy_wave(fsa, tmp_path, monkeypatch):
 
 def test_wave_split_tool(tmp_path, monkeypatch, capsys):
     """``tools.wave_split`` on the CPU: one line a search with the device
-    wave's split and host reads, the same rows each time, and the
-    module functions it times restored afterwards."""
+    wave's split and host reads, the same rows each time, then the first
+    search's excess by stage over the later ones, and the module
+    functions it times restored afterwards."""
     from swiftortho_tpu_torch import utils
     from swiftortho_tpu_torch.tools import wave_split
     for k in wave_split.ROUTES:
@@ -423,7 +424,8 @@ def test_wave_split_tool(tmp_path, monkeypatch, capsys):
     align_pairs, log = port_blastp._align_pairs, utils.log_event
     wave_split.main(['--searches', '2', '--taxa', '3', '--families', '15',
                      '--max-len', '120', '--workdir', str(tmp_path)])
-    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    *lines, last = [json.loads(ln)
+                    for ln in capsys.readouterr().out.splitlines()]
     assert [ln['search'] for ln in lines] == [0, 1]
     assert lines[0]['sc_md5'] == lines[1]['sc_md5'] and lines[0]['rows']
     for ln in lines:
@@ -432,6 +434,16 @@ def test_wave_split_tool(tmp_path, monkeypatch, capsys):
             ln['device_wave'])
         assert ln['sw_fetch_s'] > 0 and ln['pack_s'] > 0
         assert 'accept_s' in ln['cand_stages']
+        assert {'hash_sort_s', 'csr_s', 'decode_s'} <= set(
+            ln['index_stages'])
         assert ln['peak_device_bytes'] is None
+    excess = last['first_search_excess']
+    assert {'wall_s', 'phase_a_s', 'index_csr_s', 'accept_s',
+            'expand_sort_s', 'walks_s'} <= set(excess)
+    walks = [ln['cand_stages']['right_walk_s'] + ln['cand_stages'][
+        'left_walk_s'] for ln in lines]
+    assert excess['walks_s'] == round(walks[0] - walks[1], 4)
+    assert excess['wall_s'] == round(lines[0]['wall_s'] - lines[1]['wall_s'],
+                                     4)
     assert port_blastp._align_pairs is align_pairs
     assert utils.log_event is log

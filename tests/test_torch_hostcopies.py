@@ -453,6 +453,7 @@ with open(stub, 'w') as f:
     f.write('extern "C" {\n'
             'int swt_banded_sw(void) { return 0; }\n'
             'int swt_xdrop_walk(void) { return 0; }\n'
+            'int swt_accept_rounds(void) { return 0; }\n'
             'int swt_lanes_for(int a, int b) { return 4; }\n'
             'const char *swt_cuda_error_string(int e) { return "ok"; }\n'
             '}\n')
